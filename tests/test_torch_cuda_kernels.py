@@ -1,0 +1,67 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card. Imports neither JAX nor ``torchok_tpu``, so it runs where only
+torch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Without a CUDA device every test here skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from torchok_tpu_torch.models.backbones.swin import shift_window_mask
+from torchok_tpu_torch.ops import swin_attention as ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(device, dtype, masked, b=2, hp=32, wp=32, heads=6, seed=3):
+    rng = np.random.default_rng(seed)
+    qkv = 0.5 * rng.normal(size=(b, hp, wp, 3 * heads * 32)).astype(np.float32)
+    scale = np.exp(np.minimum(np.log(10.0) + rng.normal(size=heads), np.log(100.0)))
+    bias = 16.0 / (1.0 + np.exp(-rng.normal(size=(heads, 64, 64))))
+    mask = shift_window_mask(hp, wp, 8, 4).to(device) if masked else None
+    return (torch.from_numpy(qkv).to(device, dtype),
+            torch.from_numpy(scale).float().to(device),
+            torch.from_numpy(bias).float().to(device), mask)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_swin_attention_kernel_matches_plain(cuda_device, dtype, atol, masked):
+    args = _inputs(cuda_device, dtype, masked)
+    before = ops.LAUNCHES[ops.KERNEL]
+    got = ops.swin_attention_fwd_cuda(*args, 8, 6)
+    ref = ops.swin_attention_fwd_plain(*args, 8, 6)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[ops.KERNEL] == before + 1
+    assert got.dtype == dtype and got.shape == (2, 32, 32, 192)
+    assert (got.float() - ref.float()).abs().max().item() <= atol
+
+
+def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda_device):
+    qkv, scale, bias, mask = _inputs(cuda_device, torch.bfloat16, True)
+    before = dict(ops.LAUNCHES)
+    ops.fused_swin_attention(qkv, torch.log(scale), bias, mask, ws=8, nheads=6)
+    assert ops.LAUNCHES[ops.KERNEL] == before.get(ops.KERNEL, 0) + 1
+    assert ops.LAUNCHES[ops.PLAIN] == before.get(ops.PLAIN, 0)
+
+
+def test_swin_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    qkv, scale, bias, _ = _inputs(cuda_device, torch.float32, False)
+    with pytest.raises(TypeError):
+        ops.swin_attention_fwd_cuda(qkv.half(), scale, bias, None, 8, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.swin_attention_fwd_cuda(qkv.transpose(1, 2), scale, bias, None, 8, 6)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.swin_attention_fwd_cuda(qkv, scale[:3], bias[:3], None, 8, 3)

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Where the device time of the torchok_tpu_torch SwinV2-tiny inference slice
+goes, on one NVIDIA GPU.
+
+    python tools/profile_torch_slice.py [--batches 3] [--trace PATH]
+
+Builds the slice from ``chip_smoke.SLICE_CONFIG`` (bs 128, bf16 autocast)
+through ``torchok_tpu_torch.__main__.run`` (one warm-up batch), then runs the
+trainer's eval loop over ``--batches`` batches under ``torch.profiler`` and
+prints: device time by kernel (top 25), device time by kind of kernel, the
+loop's wall time and the share of it with no kernel running. ``--trace``
+writes a Chrome trace. Timing runs with the profiler on; the slice's own
+img/s comes from ``chip_smoke.py``, without it.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import copy
+import importlib.util
+import os
+import re
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+KINDS = [  # first match wins
+    ("K1 swin_attention_fwd", r"swin_attention_fwd"),
+    ("conv (patch embed)", r"conv|cudnn|implicit_gemm|xmma_fprop"),
+    ("GEMM (Linear)", r"gemm|cutlass|nvjet|sm90_xmma|cublas"),
+    ("LayerNorm", r"layer_norm|LayerNorm"),
+    ("GELU", r"gelu|GeluCUDAKernel"),
+    ("softmax/sigmoid (cpb bias)", r"softmax|sigmoid"),
+    ("roll/pad/cat/copy (incl. H2D)", r"roll|pad|cat|copy|Copy|Memcpy|Memset|index|gather|permute"),
+    ("other elementwise", r"elementwise|vectorized|unrolled"),
+    ("reductions", r"reduce|Reduce"),
+]
+
+
+def kind_of(name: str) -> str:
+    for kind, pattern in KINDS:
+        if re.search(pattern, name):
+            return kind
+    return "other"
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--batches", type=int, default=3)
+    parser.add_argument("--trace", default=None, help="write a Chrome trace here")
+    args = parser.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_slice: needs a CUDA device")
+    sys.path.insert(0, REPO)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    from torch.profiler import ProfilerActivity, profile
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor.config_structure import Phase
+
+    print(chip_smoke.card_line())
+    cfg = copy.deepcopy(chip_smoke.SLICE_CONFIG)
+    cfg["trainer"]["limit_test_batches"] = 1  # warm-up: kernels built, plans chosen
+    trainer, _ = run(cfg, "test")
+    task = trainer.task
+    loaders = task.test_dataloader()
+    trainer._install_device_fns(loaders)
+    eval_step = trainer._make_eval_step(task)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        trainer._run_eval(task, eval_step, loaders, Phase.TEST, args.batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for s, e in spans:  # union of kernel intervals
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
+    total_us = sum(by_name.values())
+    by_kind = collections.Counter()
+    for name, us in by_name.items():
+        by_kind[kind_of(name)] += us
+
+    n = args.batches
+    print(f"eval loop: {n} batches of 128, wall {wall_ms:.3f} ms (profiler on), "
+          f"kernel time {total_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"idle share {1 - busy_us / 1e3 / wall_ms:.4f}")
+    print(f"{'kind':32s} {'ms/batch':>10s} {'share':>7s}")
+    for kind, us in by_kind.most_common():
+        print(f"{kind:32s} {us / 1e3 / n:10.4f} {us / total_us:7.4f}")
+    print(f"{'kernel':90s} {'calls':>6s} {'ms/batch':>10s} {'share':>7s}")
+    for name, us in by_name.most_common(25):
+        print(f"{name[:90]:90s} {count[name]:6d} {us / 1e3 / n:10.4f} {us / total_us:7.4f}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        print(f"trace written to {args.trace}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                          "temperature.gpu", "--format=csv"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

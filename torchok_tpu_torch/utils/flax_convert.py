@@ -1,0 +1,109 @@
+"""Flax variables -> PyTorch state_dict for the port's modules (numpy only).
+
+The inverse of ``torchok_tpu.utils.torch_convert`` (``map_swin`` and the
+layout adaptation in ``fit_tensor``): it carries a ``torchok_tpu`` model's
+parameters into ``torchok_tpu_torch``, whose modules use timm key names.
+
+* Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
+* Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
+* LayerNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
+* family-specific path renames (SwinV2: ``layers_0_blocks_1`` ->
+  ``layers.0.blocks.1``, ``cpb_mlp_0``/``cpb_mlp_1`` -> ``cpb_mlp.0``/``.2``,
+  ``patch_embed``/``patch_norm`` -> ``patch_embed.proj``/``patch_embed.norm``).
+
+Only the ``params`` collection carries over; the SwinV2 family has no
+``batch_stats``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, Dict, List, Mapping, Tuple
+
+import numpy as np
+
+_LEAF = {"kernel": "weight", "scale": "weight"}
+
+
+def _swin_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for p in parts:
+        if (m := re.fullmatch(r"layers_(\d+)_blocks_(\d+)", p)):
+            out += ["layers", m[1], "blocks", m[2]]
+        elif (m := re.fullmatch(r"layers_(\d+)_downsample", p)):
+            out += ["layers", m[1], "downsample"]
+        elif (m := re.fullmatch(r"cpb_mlp_(\d+)", p)):
+            out += ["cpb_mlp", str(2 * int(m[1]))]
+        elif (m := re.fullmatch(r"feature_norms_(\d+)", p)):
+            out += ["feature_norms", m[1]]
+        elif p == "patch_embed":
+            out += ["patch_embed", "proj"]
+        elif p == "patch_norm":
+            out += ["patch_embed", "norm"]
+        else:
+            out.append(p)
+    return out
+
+
+def _plain_path(parts: List[str]) -> List[str]:
+    return list(parts)
+
+
+_FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
+    (r"^swinv2", _swin_path),
+]
+
+
+def _path_mapper(name: str) -> Callable[[List[str]], List[str]]:
+    for pat, fn in _FAMILY_PATHS:
+        if re.match(pat, name):
+            return fn
+    return _plain_path
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _torch_layout(leaf_name: str, value: np.ndarray) -> np.ndarray:
+    if leaf_name == "kernel":
+        if value.ndim == 2:
+            return value.T  # Dense (in, out) -> Linear (out, in)
+        if value.ndim == 4:
+            return value.transpose(3, 2, 0, 1)  # Conv HWIO -> OIHW
+        raise ValueError(f"unexpected kernel rank {value.ndim}")
+    return value
+
+
+def flax_to_state_dict(name: str, variables: Mapping[str, Any],
+                       prefix: str = "") -> Dict[str, np.ndarray]:
+    """Convert the Flax variables of module ``name`` (a registry name such as
+    ``swinv2_tiny_window8_256``, or a head/pooling class name) into the
+    port's state_dict entries, each key prefixed by ``prefix``.
+
+    ``variables`` is ``{"params": ...}`` or the params tree itself; leaves
+    may be numpy or anything ``np.asarray`` accepts."""
+    params = variables.get("params", variables)
+    mapper = _path_mapper(name)
+    out: Dict[str, np.ndarray] = {}
+    for path, leaf in _leaves(params):
+        parts = mapper(list(path[:-1])) + [_LEAF.get(path[-1], path[-1])]
+        value = np.ascontiguousarray(_torch_layout(path[-1], np.array(leaf, np.float32)))
+        out[prefix + ".".join(parts)] = value
+    return out
+
+
+def task_flax_to_state_dict(backbone_name: str,
+                            variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Carry a whole classification model (``backbone``, ``pooling``,
+    ``head`` sub-trees of a ``torchok_tpu`` task's params) into the state_dict
+    of the port's ``ClassificationModel``."""
+    params = variables.get("params", variables)
+    out: Dict[str, np.ndarray] = {}
+    for part, tree in params.items():
+        name = backbone_name if part == "backbone" else part
+        out.update(flax_to_state_dict(name, tree, prefix=f"{part}."))
+    return out
