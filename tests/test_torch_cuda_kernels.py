@@ -65,3 +65,64 @@ def test_swin_attention_kernel_refuses_what_it_does_not_take(cuda_device):
         ops.swin_attention_fwd_cuda(qkv.transpose(1, 2), scale, bias, None, 8, 6)
     with pytest.raises(ValueError, match="head dim"):
         ops.swin_attention_fwd_cuda(qkv, scale[:3], bias[:3], None, 8, 3)
+
+
+def _dout(device, dtype, b=2, hp=32, wp=32, heads=6, seed=4):
+    dout = np.random.default_rng(seed).normal(size=(b, hp, wp, heads * 32)).astype(np.float32)
+    return torch.from_numpy(dout).to(device, dtype)
+
+
+# dqkv is rounded to the input dtype; dbias and dscale are f32 sums in both
+# versions, in another order. Each is held to a fraction of the reference's
+# largest magnitude.
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, (1e-4, 1e-3, 1e-3)),
+                                       (torch.bfloat16, (2e-2, 1e-3, 1e-3))], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_swin_attention_bwd_kernel_matches_plain(cuda_device, dtype, rel, masked):
+    args = _inputs(cuda_device, dtype, masked)
+    dout = _dout(cuda_device, dtype)
+    before = ops.LAUNCHES[ops.KERNEL_BWD]
+    got = ops.swin_attention_bwd_cuda(*args, dout, 8, 6)
+    again = ops.swin_attention_bwd_cuda(*args, dout, 8, 6)
+    ref = ops.swin_attention_bwd_plain(*args, dout, 8, 6)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[ops.KERNEL_BWD] == before + 2
+    assert got[0].dtype == dtype and got[0].shape == args[0].shape
+    assert got[1].shape == (6, 64, 64) and got[2].shape == (6,)
+    for g, a, r, tol in zip(got, again, ref, rel):
+        assert torch.equal(g, a)  # no atomics: bit-identical from run to run
+        assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+def test_autograd_sends_cuda_tensors_to_both_kernels(cuda_device):
+    qkv, scale, bias, mask = _inputs(cuda_device, torch.bfloat16, True)
+    qkv.requires_grad_(True)
+    logit_scale = torch.log(scale).requires_grad_(True)
+    bias.requires_grad_(True)
+    before = dict(ops.LAUNCHES)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = ops.fused_swin_attention(qkv, logit_scale, bias, mask, ws=8, nheads=6)
+        # a strided f32 gradient, as a following op may hand over
+        out.float().transpose(1, 2).square().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[ops.KERNEL] == before.get(ops.KERNEL, 0) + 1
+    assert ops.LAUNCHES[ops.KERNEL_BWD] == before.get(ops.KERNEL_BWD, 0) + 1
+    assert ops.LAUNCHES[ops.PLAIN] == before.get(ops.PLAIN, 0)
+    assert ops.LAUNCHES[ops.PLAIN_BWD] == before.get(ops.PLAIN_BWD, 0)
+    assert qkv.grad.dtype == torch.bfloat16 and logit_scale.grad.shape == (6,)
+    assert bias.grad.shape == (6, 64, 64)
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (qkv, logit_scale, bias))
+
+
+def test_swin_attention_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
+    qkv, scale, bias, _ = _inputs(cuda_device, torch.float32, False)
+    dout = _dout(cuda_device, torch.float32)
+    with pytest.raises(TypeError, match="dout"):
+        ops.swin_attention_bwd_cuda(qkv, scale, bias, None, dout.bfloat16(), 8, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.swin_attention_bwd_cuda(qkv, scale, bias, None,
+                                    dout.transpose(1, 2).contiguous().transpose(1, 2), 8, 6)
+    with pytest.raises(ValueError, match="dout has shape"):
+        ops.swin_attention_bwd_cuda(qkv, scale, bias, None, dout[:1], 8, 6)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.swin_attention_bwd_cuda(qkv, scale[:3], bias[:3], None, dout, 8, 3)

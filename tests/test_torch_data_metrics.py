@@ -133,3 +133,57 @@ def test_loader_stops_early_and_reraises_worker_errors():
     broken = Broken(transform=None, num_samples=8, image_size=(4, 4))
     with pytest.raises(OSError, match="unreadable shard"):
         list(DataLoader(broken, batch_size=2, num_workers=2))
+
+
+@pytest.mark.parametrize("shuffle,drop_last", [(True, True), (True, False), (False, False)])
+def test_set_epoch_order_matches_jax(shuffle, drop_last):
+    """Epochs 0, 1, 2 visit the same indices in the same batches as
+    torchok_tpu's loader for the same seed."""
+    kw = dict(num_samples=11, num_classes=10, image_size=(8, 8), seed=5)
+    ref = JaxLoader(JaxSynthetic(transform=_pipeline(JAX_TRANSFORMS), **kw), batch_size=4, shuffle=shuffle, drop_last=drop_last,
+                    num_workers=0, seed=9)
+    got = DataLoader(SyntheticClassificationDataset(transform=_pipeline(TRANSFORMS), **kw),
+                     batch_size=4, shuffle=shuffle,
+                     drop_last=drop_last, num_workers=0, seed=9)
+    orders = []
+    for epoch in (0, 1, 2):
+        ref.set_epoch(epoch)
+        got.set_epoch(epoch)
+        ref_batches, got_batches = ref._index_batches(), got._index_batches()
+        assert len(got_batches) == len(ref_batches) == len(got) == len(ref)
+        for a, b in zip(got_batches, ref_batches):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(got, ref):  # and the batches themselves
+            np.testing.assert_array_equal(a["target"], b["target"])
+        orders.append(np.concatenate(got_batches).tolist())
+    assert (orders[0] != orders[1] and orders[1] != orders[2]) == shuffle
+
+
+def test_train_phase_metrics_accumulate_and_reset_per_epoch():
+    """Phase.TRAIN metrics see every step's outputs, are read at the epoch's
+    end and start the next epoch empty, as torchok_tpu's MetricsManager."""
+    from torchok_tpu.constructor.config_structure import Phase as JaxPhase
+    from torchok_tpu.metrics.metrics_manager import MetricsManager as JaxManager
+    from torchok_tpu_torch.constructor.config_structure import Phase
+    from torchok_tpu_torch.metrics.metrics_manager import MetricsManager
+    params = [{"name": "Accuracy", "params": {"task": "multiclass", "num_classes": 5},
+               "mapping": {"preds": "prediction", "target": "target"}},
+              {"name": "F1Score", "params": {"task": "multiclass", "num_classes": 5},
+               "mapping": {"preds": "prediction", "target": "target"},
+               "phases": ["VALID"], "tag": "f1"}]
+    ref, got = JaxManager(params), MetricsManager(params)
+    rng = np.random.default_rng(8)
+    logs = []
+    for epoch in range(2):
+        for _ in range(3):
+            preds = rng.normal(size=(8, 5)).astype(np.float32)
+            target = rng.integers(0, 5, size=8)
+            ref.update(JaxPhase.TRAIN, 0, prediction=jnp.asarray(preds), target=jnp.asarray(target))
+            got.update(Phase.TRAIN, 0, prediction=torch.from_numpy(preds),
+                       target=torch.from_numpy(target))
+        ref_log, log = ref.on_epoch_end(JaxPhase.TRAIN), got.on_epoch_end(Phase.TRAIN)
+        assert set(log) == set(ref_log) == {"train/Accuracy"}  # F1 is VALID-only
+        assert log["train/Accuracy"] == pytest.approx(ref_log["train/Accuracy"], abs=1e-7)
+        logs.append(log["train/Accuracy"])
+    assert logs[0] != logs[1]  # the second epoch did not start from the first's counts
+    assert all(m.state is None for m in got.phase2metrics["TRAIN"])

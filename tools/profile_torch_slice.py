@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the device time of the torchok_tpu_torch SwinV2-tiny inference slice
-goes, on one NVIDIA GPU.
+"""Where the device time of the torchok_tpu_torch SwinV2-tiny slices goes, on
+one NVIDIA GPU.
 
-    python tools/profile_torch_slice.py [--batches 3] [--trace PATH]
+    python tools/profile_torch_slice.py [--mode eval|train] [--batches 3] [--trace PATH]
 
-Builds the slice from ``chip_smoke.SLICE_CONFIG`` (bs 128, bf16 autocast)
-through ``torchok_tpu_torch.__main__.run`` (one warm-up batch), then runs the
-trainer's eval loop over ``--batches`` batches under ``torch.profiler`` and
-prints: device time by kernel (top 25), device time by kind of kernel, the
-loop's wall time and the share of it with no kernel running. ``--trace``
-writes a Chrome trace. Timing runs with the profiler on; the slice's own
-img/s comes from ``chip_smoke.py``, without it.
+``--mode eval`` builds the inference slice from ``chip_smoke.SLICE_CONFIG``
+(bs 128, bf16 autocast) through ``torchok_tpu_torch.__main__.run`` (one
+warm-up batch) and profiles the trainer's eval loop; ``--mode train`` builds
+the train slice from ``chip_smoke.TRAIN_CONFIG`` (two warm-up steps) and
+profiles the trainer's train step on ``--batches`` batches of its loader.
+Either runs under ``torch.profiler`` and prints: device time by kernel (top
+25), device time by kind of kernel, the loop's wall time and the share of it
+with no kernel running. ``--trace`` writes a Chrome trace. Timing runs with
+the profiler on; the slices' own img/s come from ``chip_smoke.py``, without it.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KINDS = [  # first match wins
+    ("K2 swin_attention_bwd", r"swin_attention_bwd"),
     ("K1 swin_attention_fwd", r"swin_attention_fwd"),
+    ("optimizer (Adam, foreach)", r"multi_tensor_apply|[Aa]dam"),
     ("conv (patch embed)", r"conv|cudnn|implicit_gemm|xmma_fprop"),
     ("GEMM (Linear)", r"gemm|cutlass|nvjet|sm90_xmma|cublas"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
@@ -48,6 +52,7 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=3)
     parser.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = parser.parse_args()
@@ -64,23 +69,47 @@ def main() -> None:
     from torchok_tpu_torch.constructor.config_structure import Phase
 
     print(chip_smoke.card_line())
-    cfg = copy.deepcopy(chip_smoke.SLICE_CONFIG)
-    cfg["trainer"]["limit_test_batches"] = 1  # warm-up: kernels built, plans chosen
-    trainer, _ = run(cfg, "test")
-    task = trainer.task
-    loaders = task.test_dataloader()
-    trainer._install_device_fns(loaders)
-    eval_step = trainer._make_eval_step(task)
+    if args.mode == "eval":
+        cfg = copy.deepcopy(chip_smoke.SLICE_CONFIG)
+        cfg["trainer"]["limit_test_batches"] = 1  # warm-up: kernels built, plans chosen
+        trainer, _ = run(cfg, "test")
+        task = trainer.task
+        loaders = task.test_dataloader()
+        trainer._install_device_fns(loaders, train=False)
+        eval_step = trainer._make_eval_step(task)
+
+        def loop():
+            trainer._run_eval(task, eval_step, loaders, Phase.TEST, args.batches)
+    else:
+        cfg = copy.deepcopy(chip_smoke.TRAIN_CONFIG)
+        cfg["trainer"].update(max_epochs=1, limit_train_batches=2, limit_val_batches=1,
+                              num_sanity_val_steps=0)  # warm-up: two steps, one val batch
+        trainer, _ = run(cfg, "train")
+        task = trainer.task
+        loader = task.train_dataloader()[0]
+        trainer._install_device_fns([loader], train=True)
+        train_step = trainer._make_train_step(task)
+        trainer.state.model.train()
+
+        def loop():
+            for i, batch in enumerate(loader):
+                if i >= args.batches:
+                    break
+                train_step(batch)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        trainer._run_eval(task, eval_step, loaders, Phase.TEST, args.batches)
+        loop()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
 
+    # device events only, without the spans that mirror host annotations
+    # (``Optimizer.step#Adam.step``) over the kernels they enclose
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_start, cur_end = 0.0, None, None
     for s, e in spans:  # union of kernel intervals
@@ -104,7 +133,7 @@ def main() -> None:
         by_kind[kind_of(name)] += us
 
     n = args.batches
-    print(f"eval loop: {n} batches of 128, wall {wall_ms:.3f} ms (profiler on), "
+    print(f"{args.mode} loop: {n} batches of 128, wall {wall_ms:.3f} ms (profiler on), "
           f"kernel time {total_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1 - busy_us / 1e3 / wall_ms:.4f}")
     print(f"{'kind':32s} {'ms/batch':>10s} {'share':>7s}")

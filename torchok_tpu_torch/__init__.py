@@ -9,10 +9,13 @@ __version__ = "0.1.0"
 
 # Importing submodules populates the registries.
 from torchok_tpu_torch import constructor  # noqa: F401
+from torchok_tpu_torch import losses  # noqa: F401
 from torchok_tpu_torch import metrics  # noqa: F401
+from torchok_tpu_torch import optim  # noqa: F401
 from torchok_tpu_torch import models  # noqa: F401
 from torchok_tpu_torch import data  # noqa: F401
 from torchok_tpu_torch import tasks  # noqa: F401
 from torchok_tpu_torch.constructor import (  # noqa: F401
-    BACKBONES, DATASETS, HEADS, METRICS, POOLINGS, TASKS, TRANSFORMS,
+    BACKBONES, DATASETS, HEADS, LOSSES, METRICS, OPTIMIZERS, POOLINGS, SCHEDULERS, TASKS,
+    TRANSFORMS,
 )

@@ -54,6 +54,7 @@ class DataLoader:
         self.collate_fn = collate_fn or getattr(dataset, "collate_fn", None) or default_collate
         self.prefetch_factor = max(1, prefetch_factor)
         self.seed = seed
+        self.epoch = 0
         # engine-installed: numpy host batch -> device batch with the
         # device transform suffix applied
         self.device_fn: Optional[Callable[[Dict[str, Any]], Any]] = None
@@ -64,11 +65,17 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int) -> None:
+        """Epoch-deterministic order and dataset noise, with torchok_tpu's
+        two seeds."""
+        self.epoch = epoch
+        if hasattr(self.dataset, "seed"):
+            self.dataset.seed(self.seed * 1_000_003 + epoch)
+
     def _index_batches(self) -> List[np.ndarray]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
-            # torchok_tpu's order for epoch 0 (seed * 7_368_787 + epoch)
-            rng = np.random.default_rng(self.seed * 7_368_787)
+            rng = np.random.default_rng(self.seed * 7_368_787 + self.epoch)
             rng.shuffle(order)
         return [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)
                 if i + self.batch_size <= len(order) or not self.drop_last]

@@ -1,13 +1,20 @@
 """Trainer state."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import List, Optional
 
+import torch
 from torch import nn
 
 
 @dataclass
 class TrainState:
-    """What the engine carries between steps. For evaluation that is the
-    model on the trainer's device; optimizer state joins with training."""
+    """What the engine carries between steps: the model on the trainer's
+    device (f32 parameters), and for training the optimizers with their
+    state, the count of train steps taken (``step``, one per batch) and the
+    generator that every dropout and drop-path draw comes from."""
     model: nn.Module
+    optimizers: List[torch.optim.Optimizer] = field(default_factory=list)
+    step: int = 0
+    dropout_generator: Optional[torch.Generator] = None

@@ -17,18 +17,20 @@ the backbone boundary.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as checkpoint_util
 from torch import nn
 
 from torchok_tpu_torch.constructor import BACKBONES
 from torchok_tpu_torch.models.base import BaseBackbone
 from torchok_tpu_torch.models.modules.bricks.mlp import Mlp
-from torchok_tpu_torch.ops.common import DropPath
+from torchok_tpu_torch.ops.common import Dropout, DropPath, replay_generator
 from torchok_tpu_torch.ops.swin_attention import fused_swin_attention
 
 
@@ -93,7 +95,7 @@ class WindowAttention(nn.Module):
         else:
             self.q_bias = self.v_bias = None
         self.proj = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
         self._tables: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _coords(self, ws: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,8 +103,11 @@ class WindowAttention(nn.Module):
         if key not in self._tables:
             table = _relative_coords_table(ws, self.pretrained_window_size)
             index = _relative_position_index(ws).reshape(-1)
-            self._tables[key] = (torch.from_numpy(table).to(device),
-                                 torch.from_numpy(index).to(device))
+            # built outside inference mode: an eval step may fill the cache
+            # and a train step then saves these for its backward
+            with torch.inference_mode(False):
+                self._tables[key] = (torch.from_numpy(table).to(device),
+                                     torch.from_numpy(index).to(device))
         return self._tables[key]
 
     def relative_position_bias(self, ws: int, device: torch.device) -> torch.Tensor:
@@ -149,7 +154,8 @@ class SwinBlock(nn.Module):
               device: torch.device) -> torch.Tensor:
         key = (hp, wp, ws, shift, device)
         if key not in self._masks:
-            self._masks[key] = shift_window_mask(hp, wp, ws, shift).to(device)
+            with torch.inference_mode(False):  # as for the coordinate tables
+                self._masks[key] = shift_window_mask(hp, wp, ws, shift).to(device)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -233,8 +239,10 @@ class SwinTransformerV2(BaseBackbone):
                  pretrained_window_sizes: Sequence[int] = (0, 0, 0, 0),
                  grad_checkpointing: bool = False):
         super().__init__()
-        if grad_checkpointing:
-            raise NotImplementedError("grad_checkpointing comes with the training slice")
+        # recompute each block's activations in the backward instead of
+        # keeping them (reference swin.py:77-80: torch.utils.checkpoint per block)
+        self.grad_checkpointing = grad_checkpointing
+        self.dropout_generator: Optional[torch.Generator] = None
         self.encoder_channels = [int(embed_dim * 2 ** i) for i in range(len(depths))]
         self.patch_embed = PatchEmbed(in_channels, embed_dim, patch_size, patch_norm)
         grid = img_size // patch_size  # sizes the absolute position embedding
@@ -243,7 +251,7 @@ class SwinTransformerV2(BaseBackbone):
             nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02)
         else:
             self.absolute_pos_embed = None
-        self.pos_drop = nn.Dropout(drop_rate)
+        self.pos_drop = Dropout(drop_rate)
 
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
@@ -276,6 +284,22 @@ class SwinTransformerV2(BaseBackbone):
     def out_channels(self) -> int:
         return self.encoder_channels[-1]
 
+    def no_weight_decay(self) -> List[str]:
+        return ["absolute_pos_embed", "cpb_mlp", "logit_scale"]
+
+    def _block(self, blk: SwinBlock, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        if not (self.grad_checkpointing and self.training and torch.is_grad_enabled()):
+            return blk(x, hw)
+        context_fn = checkpoint_util.noop_context_fn
+        generator = self.dropout_generator
+        if generator is not None:
+            state = generator.get_state()  # the recomputation redraws from here
+
+            def context_fn():
+                return contextlib.nullcontext(), replay_generator(generator, state)
+        return checkpoint_util.checkpoint(blk, x, hw, use_reentrant=False,
+                                          context_fn=context_fn)
+
     def _features(self, x: torch.Tensor, every_stage: bool) -> List[torch.Tensor]:
         features = [x]
         x, hw = self.patch_embed(x)
@@ -285,7 +309,7 @@ class SwinTransformerV2(BaseBackbone):
         last = len(self.layers) - 1
         for i, (stage, norm) in enumerate(zip(self.layers, self.feature_norms)):
             for blk in stage.blocks:
-                x = blk(x, hw)
+                x = self._block(blk, x, hw)
             # per-stage normed feature (reference swin.py:219-249); eager
             # PyTorch has no dead-code elimination, so skip unused ones
             if every_stage or i == last:

@@ -12,6 +12,7 @@ from torch import nn
 
 from torchok_tpu_torch.constructor import HEADS
 from torchok_tpu_torch.models.base import BaseModel
+from torchok_tpu_torch.ops.common import Dropout
 
 
 @HEADS.register_class
@@ -20,7 +21,7 @@ class ClassificationHead(BaseModel):
                  drop_rate: float = 0.0, bias: bool = True):
         super().__init__()
         self.num_classes = num_classes
-        self.drop = nn.Dropout(drop_rate)
+        self.drop = Dropout(drop_rate)
         self.fc = nn.Linear(in_channels, num_classes, bias=bias)
 
     @property

@@ -6,6 +6,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from torchok_tpu_torch.ops.common import Dropout
+
 
 class Mlp(nn.Module):
     """fc1 -> exact (erf) GELU -> dropout -> fc2 -> dropout."""
@@ -18,7 +20,7 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(in_features, hidden)
         self.act = nn.GELU()
         self.fc2 = nn.Linear(hidden, out)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(self.act(self.fc1(x)))

@@ -1,15 +1,15 @@
 """BaseTask (reference: torchok/tasks/base.py:17-204; port of the part of
-``torchok_tpu.tasks.base`` that evaluation needs).
+``torchok_tpu.tasks.base`` that classification training and evaluation need).
 
 A task owns an ``nn.Module`` (``self.model``) whose ``forward(batch)`` is the
 reference's ``forward_with_gt``: it consumes the batch dict and returns the
-outputs dict that the MetricsManager mappings refer to. The trainer moves
-the model to its device and runs it; the task builds the dataloaders and the
-metrics manager through the Constructor.
+outputs dict that the JointLoss and MetricsManager mappings refer to. The
+trainer moves the model to its device and runs it; the task builds the
+dataloaders, the joint loss and the metrics manager through the Constructor.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,11 +52,33 @@ class BaseTask:
     def dataloaders(self, phase: Phase) -> List[DataLoader]:
         return self._constructor.create_dataloaders(phase)
 
+    def train_dataloader(self) -> List[DataLoader]:
+        return self.dataloaders(Phase.TRAIN)
+
+    def val_dataloader(self) -> List[DataLoader]:
+        return self.dataloaders(Phase.VALID)
+
     def test_dataloader(self) -> List[DataLoader]:
         return self.dataloaders(Phase.TEST)
 
     def predict_dataloader(self) -> List[DataLoader]:
         return self.dataloaders(Phase.PREDICT)
+
+    def no_weight_decay(self) -> List[str]:
+        """Parameter-path fragments the backbone keeps out of weight decay."""
+        backbone = getattr(self.model, "backbone", None)
+        return list(getattr(backbone, "no_weight_decay", lambda: [])())
+
+    def compute_loss(self, outputs: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Map step outputs to the joint loss: (f32 total, tagged values)."""
+        if self.losses is None:
+            device = next(self.model.parameters()).device
+            return torch.zeros((), device=device), {}
+        return self.losses(**outputs)
+
+    @property
+    def compute_loss_on_valid(self) -> bool:
+        return bool(self._hparams.task.get("compute_loss_on_valid", True))
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init of every parameter from an explicit generator."""

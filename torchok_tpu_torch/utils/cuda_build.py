@@ -16,15 +16,17 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torchok_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards the two dicts below
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -51,8 +53,11 @@ def build_log(name: str) -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
+    """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
+    One lock per source: different sources build side by side."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _LOADED:
             return _LOADED[name]
         out = library_path(name)
@@ -72,3 +77,11 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LOADED[name] = lib
         return lib
+
+
+def load_libraries(names: Sequence[str]) -> None:
+    """Build (one ``nvcc`` per source, all started together) and load
+    several libraries; the first failure raises."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for future in [pool.submit(load_library, n) for n in names]:
+            future.result()

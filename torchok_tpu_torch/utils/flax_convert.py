@@ -12,7 +12,10 @@ parameters into ``torchok_tpu_torch``, whose modules use timm key names.
   ``patch_embed``/``patch_norm`` -> ``patch_embed.proj``/``patch_embed.norm``).
 
 Only the ``params`` collection carries over; the SwinV2 family has no
-``batch_stats``.
+``batch_stats``. ``task_name_map`` gives the same correspondence by name
+(port key -> Flax path) and ``state_dict_to_task_flax`` carries a port
+``state_dict`` back into the Flax tree, so parameters and gradients can be
+compared leaf by leaf after training in either package.
 """
 from __future__ import annotations
 
@@ -78,6 +81,21 @@ def _torch_layout(leaf_name: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
+def _flax_layout(leaf_name: str, value: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_torch_layout`."""
+    if leaf_name == "kernel":
+        if value.ndim == 2:
+            return value.T
+        if value.ndim == 4:
+            return value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        raise ValueError(f"unexpected weight rank {value.ndim}")
+    return value
+
+
+def _key(mapper: Callable[[List[str]], List[str]], path: Tuple[str, ...], prefix: str) -> str:
+    return prefix + ".".join(mapper(list(path[:-1])) + [_LEAF.get(path[-1], path[-1])])
+
+
 def flax_to_state_dict(name: str, variables: Mapping[str, Any],
                        prefix: str = "") -> Dict[str, np.ndarray]:
     """Convert the Flax variables of module ``name`` (a registry name such as
@@ -90,9 +108,8 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
     mapper = _path_mapper(name)
     out: Dict[str, np.ndarray] = {}
     for path, leaf in _leaves(params):
-        parts = mapper(list(path[:-1])) + [_LEAF.get(path[-1], path[-1])]
         value = np.ascontiguousarray(_torch_layout(path[-1], np.array(leaf, np.float32)))
-        out[prefix + ".".join(parts)] = value
+        out[_key(mapper, path, prefix)] = value
     return out
 
 
@@ -106,4 +123,31 @@ def task_flax_to_state_dict(backbone_name: str,
     for part, tree in params.items():
         name = backbone_name if part == "backbone" else part
         out.update(flax_to_state_dict(name, tree, prefix=f"{part}."))
+    return out
+
+
+def task_name_map(backbone_name: str,
+                  variables: Mapping[str, Any]) -> Dict[str, Tuple[str, ...]]:
+    """Port ``state_dict`` key -> path of the same leaf in the Flax params
+    tree of a classification task (``("backbone", "layers_0_blocks_0", ...)``)."""
+    params = variables.get("params", variables)
+    out: Dict[str, Tuple[str, ...]] = {}
+    for part, tree in params.items():
+        mapper = _path_mapper(backbone_name if part == "backbone" else part)
+        for path, _ in _leaves(tree):
+            out[_key(mapper, path, f"{part}.")] = (part,) + path
+    return out
+
+
+def state_dict_to_task_flax(backbone_name: str, state_dict: Mapping[str, Any],
+                            variables: Mapping[str, Any]) -> Dict[str, Any]:
+    """Carry a port ``state_dict`` (values ``np.asarray`` accepts) back into
+    a nested dict shaped like the Flax params tree of ``variables``."""
+    out: Dict[str, Any] = {}
+    for key, path in task_name_map(backbone_name, variables).items():
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(
+            _flax_layout(path[-1], np.asarray(state_dict[key], np.float32)))
     return out
