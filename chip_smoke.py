@@ -4,35 +4,45 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
-2. Builds the port's CUDA kernels from ``torchok_tpu_torch/csrc`` with nvcc,
-   one compiler per source, side by side.
-3. Holds each kernel against its plain PyTorch version on the card at each
-   stage shape of the SwinV2-tiny slice, at batch 8 in f32 (TF32 off) and
-   bf16 and at the slices' own batch 128 in bf16, and times kernel, plain
-   version and the closest library call (``F.scaled_dot_product_attention``
-   on prepared windows; for K2 its forward + backward) with CUDA events
-   (median after warm-up). K1 (forward): max abs error <= 1e-4 in f32,
-   <= 2e-2 in bf16. K2 (backward): dqkv, dbias and dscale each within a
-   stated fraction of the reference's largest magnitude, and bit-equal
-   between two launches on the same inputs.
-4. Drives the inference slice through ``torchok_tpu_torch.__main__.run`` with
-   ``SLICE_CONFIG`` (equal to configs/classification_swinv2_tiny_synthetic.yaml):
-   swinv2_tiny_window8_256 at full width, 256x256, 1000 classes, batch 128,
-   bf16 autocast, 3 batches, random weights from the seed. The launch
-   counters are zeroed just before each run and read just after: the kernel
-   must launch once per SwinBlock per batch (12 x 3) and the plain version
-   never. The logits must be finite, Accuracy and F1Score reported, and the
-   model must agree in f32 with its CPU run (plain attention) on two images.
-5. Drives the train slice through ``run(..., "train")`` with ``SMOKE_TRAIN``
-   (``TRAIN_CONFIG``, equal to configs/classification_swinv2_tiny_synthetic_train.yaml,
-   with the train set cut to one batch repeated for 10 one-step epochs and
-   one validation batch at the end): K1 must launch 12 x (train steps + eval
-   batches), K2 12 x train steps, the plain versions never; every loss
-   finite and the last below the first; the validation metrics reported;
-   every parameter finite and qkv, cpb_mlp and logit_scale moved. Then one
-   f32 forward + backward of the model on two images on the card (K1 + K2)
-   against the CPU (plain versions), over all parameter gradients.
-6. Prints ``{"kernels": [...]}``, the card line, and last
+2. Builds the port's six CUDA kernels from ``torchok_tpu_torch/csrc`` with
+   nvcc, one compiler per source, side by side, and prints each kernel's
+   registers and spills.
+3. Holds each kernel against its plain PyTorch version on the card and times
+   kernel, plain version and the closest library call
+   (``F.scaled_dot_product_attention`` on prepared windows; for a backward
+   kernel its forward + backward) with CUDA events (median after warm-up),
+   beside the bound from the bytes each must move and the operations it does:
+   * K1/K2 (SwinV2 cosine attention, forward/backward) at each stage shape of
+     swinv2_tiny_window8_256, batch 8 in f32 (TF32 off) and bf16 and batch
+     128 in bf16. K1: max abs error <= 1e-4 in f32, <= 2e-2 in bf16. K2:
+     dqkv, dbias and dscale each within a stated fraction of the reference's
+     largest magnitude, bit-equal between two launches.
+   * K3a/K3b (plain window attention, forward/backward) at gcvit_tiny's four
+     local shapes (windows 7/7/14/7, with the bias) and davit_t's four
+     (window 7, no bias); K4/K5 (global-query attention, forward/backward)
+     at gcvit_tiny's four; batch 8 in f32 and batch 128 in bf16, the same
+     tolerances, backward kernels bit-equal between two launches.
+4. Drives the slices through ``torchok_tpu_torch.__main__.run`` with the
+   dicts below (each equal to its ``configs/classification_*_synthetic*.yaml``),
+   at full width, batch 128, bf16 autocast, random weights from the seed. The
+   launch counters are zeroed just before each run and read just after; the
+   counts must be exactly the expected kernel launches and no plain call:
+   * inference (``SLICE_CONFIG`` swinv2_tiny 256x256, ``GCVIT_SLICE_CONFIG``
+     gcvit_tiny 224x224), 3 batches in modes test and predict: 12 K1, or
+     17 K3a + 14 K4, per batch; finite logits, Accuracy and F1Score reported,
+     and the model in f32 on the card within 1e-3 of its CPU run (plain
+     attention) on two images;
+   * training (``TRAIN_CONFIG``, ``GCVIT_TRAIN_CONFIG``, ``DAVIT_TRAIN_CONFIG``
+     with the train set cut to one batch repeated for 10 one-step epochs, one
+     sanity and one final validation batch): per step 12 K1 + 12 K2, or
+     17 K3a + 14 K4 + 17 K3b + 14 K5, or 6 K3a + 6 K3b (davit_t); every loss
+     finite and the last below the first; the validation metrics reported;
+     every parameter finite and the named ones moved;
+   * one f32 forward + backward of swinv2_tiny and of gcvit_tiny on two images
+     on the card (kernels) against the CPU (plain versions), over all
+     parameter gradients, within 1e-3 of the largest gradient.
+5. Prints ``{"kernels": [...]}`` (K1, K2, K3a, K3b, K4, K5; the K3 to K5 times
+   are summed over one gcvit_tiny forward or backward), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. Without a CUDA
@@ -51,57 +61,68 @@ import time
 
 _METRIC = {"params": {"task": "multiclass", "num_classes": 1000},
            "mapping": {"preds": "prediction", "target": "target"}}
-_PHASE_DATA = [{
-    "dataloader": {"batch_size": 128, "num_workers": 2, "drop_last": False, "shuffle": False},
-    "dataset": {
-        "name": "SyntheticClassificationDataset",
-        "params": {"num_samples": 384, "num_classes": 1000, "image_size": [256, 256]},
-        "transform": [{"name": "Normalize"}, {"name": "ToTensorV2"}],
-    },
-}]
 
 
-def _synthetic(num_samples, shuffle, drop_last, **extra):
+def _synthetic(num_samples, shuffle, drop_last, size=256, **extra):
     return [{
         "dataloader": {"batch_size": 128, "num_workers": 2, "drop_last": drop_last,
                        "shuffle": shuffle},
         "dataset": {
             "name": "SyntheticClassificationDataset",
             "params": {"num_samples": num_samples, "num_classes": 1000,
-                       "image_size": [256, 256], **extra},
+                       "image_size": [size, size], **extra},
             "transform": [{"name": "Normalize"}, {"name": "ToTensorV2"}],
         },
     }]
 
 
-SLICE_CONFIG = {
-    "task": {
+def _task(backbone, size, **backbone_params):
+    return {
         "name": "ClassificationTask",
         "params": {
-            "backbone_name": "swinv2_tiny_window8_256",
-            "backbone_params": {"pretrained": False, "in_channels": 3},
+            "backbone_name": backbone,
+            "backbone_params": {"pretrained": False, "in_channels": 3, **backbone_params},
             "pooling_name": "Pooling",
             "head_name": "ClassificationHead",
             "head_params": {"num_classes": 1000},
-            "inputs": [{"shape": [3, 256, 256], "dtype": "float32"}],
+            "inputs": [{"shape": [3, size, size], "dtype": "float32"}],
         },
-    },
-    "data": {"TEST": _PHASE_DATA, "PREDICT": _PHASE_DATA},
-    "trainer": {"accelerator": "gpu", "precision": 16,
-                "limit_test_batches": 3, "limit_predict_batches": 3},
-    "seed_params": {"seed": 42},
-    "metrics": [{"name": "Accuracy", **_METRIC}, {"name": "F1Score", **_METRIC}],
-}
-TRAIN_CONFIG = {
-    "task": SLICE_CONFIG["task"],
-    "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
-                               "mapping": {"input": "prediction", "target": "target"}}]},
-    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
-    "data": {"TRAIN": _synthetic(1280, True, True), "VALID": _synthetic(256, False, False, seed=1)},
-    "trainer": {"accelerator": "gpu", "precision": 16, "max_epochs": 2},
-    "seed_params": {"seed": 42},
-    "metrics": [{"name": "Accuracy", **_METRIC}],
-}
+    }
+
+
+def slice_config(backbone, size, **backbone_params):
+    """The inference recipe (configs/classification_<model>_synthetic.yaml)."""
+    data = _synthetic(384, False, False, size)
+    return {
+        "task": _task(backbone, size, **backbone_params),
+        "data": {"TEST": data, "PREDICT": data},
+        "trainer": {"accelerator": "gpu", "precision": 16,
+                    "limit_test_batches": 3, "limit_predict_batches": 3},
+        "seed_params": {"seed": 42},
+        "metrics": [{"name": "Accuracy", **_METRIC}, {"name": "F1Score", **_METRIC}],
+    }
+
+
+def train_config(backbone, size, **backbone_params):
+    """The train recipe (configs/classification_<model>_synthetic_train.yaml)."""
+    return {
+        "task": _task(backbone, size, **backbone_params),
+        "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
+                                   "mapping": {"input": "prediction", "target": "target"}}]},
+        "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
+        "data": {"TRAIN": _synthetic(1280, True, True, size),
+                 "VALID": _synthetic(256, False, False, size, seed=1)},
+        "trainer": {"accelerator": "gpu", "precision": 16, "max_epochs": 2},
+        "seed_params": {"seed": 42},
+        "metrics": [{"name": "Accuracy", **_METRIC}],
+    }
+
+
+SLICE_CONFIG = slice_config("swinv2_tiny_window8_256", 256)
+TRAIN_CONFIG = train_config("swinv2_tiny_window8_256", 256)
+GCVIT_SLICE_CONFIG = slice_config("gcvit_tiny", 224, img_size=224)
+GCVIT_TRAIN_CONFIG = train_config("gcvit_tiny", 224, img_size=224)
+DAVIT_TRAIN_CONFIG = train_config("davit_t", 224)
 TRAIN_STEPS = 10
 BATCHES = 3
 BLOCKS = (2, 2, 6, 2)  # SwinBlocks per stage of swinv2_tiny
@@ -118,6 +139,26 @@ K2_TOLERANCE = {"float32": {"dqkv": 1e-4, "dbias": 1e-3, "dscale": 1e-3},
                 "bfloat16": {"dqkv": 2e-2, "dbias": 1e-3, "dscale": 1e-3}}
 TIMING_ITERS = 20
 TIMING_ITERS_SMALL = 10
+
+# gcvit_tiny at 224x224: (Hp, Wp, C, heads, ws, local blocks, global blocks)
+# of each stage; head dim 32. Blocks alternate local (even) and global (odd).
+GCVIT_STAGES = ((56, 56, 64, 2, 7, 2, 1), (28, 28, 128, 4, 7, 2, 2),
+                (14, 14, 256, 8, 14, 10, 9), (7, 7, 512, 16, 7, 3, 2))
+# davit_t at 224x224: (Hp, Wp, C, heads, ws, spatial blocks); no bias
+DAVIT_STAGES = ((56, 56, 96, 3, 7, 1), (28, 28, 192, 6, 7, 1),
+                (14, 14, 384, 12, 7, 3), (7, 7, 768, 24, 7, 1))
+GCVIT_LOCAL = sum(st[5] for st in GCVIT_STAGES)    # 17 K3 launches per forward
+GCVIT_GLOBAL = sum(st[6] for st in GCVIT_STAGES)   # 14 K4 launches per forward
+DAVIT_SPATIAL = sum(st[5] for st in DAVIT_STAGES)  # 6 K3 launches per forward
+# K3b/K5 tolerances, relative to the largest magnitude of the reference
+# tensor. dqkv/dkv are rounded to the input dtype (one bf16 ulp is 2^-8
+# relative). dqg and dbias are f32 sums of f32 terms in both versions, in
+# another order; in bf16 the two versions round a few dls entries to
+# neighbouring bf16 values (their f32 dl differ in the last bits), and each
+# such entry moves dqg by a bf16 ulp (2^-8) of its term, hence 2^-8 of the
+# largest entry there (1.3e-3 to 6.4e-4 of it were seen).
+DOT_BWD_TOLERANCE = {"float32": {"dqkv": 1e-4, "dkv": 1e-4, "dqg": 1e-4, "dbias": 1e-3},
+                     "bfloat16": {"dqkv": 2e-2, "dkv": 2e-2, "dqg": 2.0 ** -8, "dbias": 1e-3}}
 
 
 def fail(msg: str) -> None:
@@ -385,83 +426,302 @@ def check_k2(timing: bool = True):
             "bound_by": bound_by, "library_ms": total_lib if timing else None}
 
 
-def run_slice(record):
+def dot_inputs(b, hp, wp, c, heads, ws, dtype, parts, with_bias, seed):
+    """(proj, qg or None, scale, bias or None, dout) on the card for the plain
+    window attention kernels; ``parts`` 3 is qkv, 2 is kv with global queries."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dev = torch.device("cuda", 0)
+    L = ws * ws
+    proj = torch.randn((b, hp, wp, parts * c), generator=g, device=dev).to(dtype)
+    qg = torch.randn((b, L, c), generator=g, device=dev).to(dtype) if parts == 2 else None
+    scale = torch.full((heads,), 32 ** -0.5, device=dev)
+    bias = torch.randn((heads, L, L), generator=g, device=dev) if with_bias else None
+    dout = torch.randn((b, hp, wp, c), generator=g, device=dev).to(dtype)
+    return proj, qg, scale, bias, dout
+
+
+def dot_sdpa_inputs(proj, qg, bias, ws, heads):
+    """The closest single library call on what it needs prepared: windows
+    already partitioned (and for the global mode the queries already repeated
+    over the windows), bias as an additive ``attn_mask``; SDPA's default scale
+    is the kernels' head_dim**-0.5."""
+    from torchok_tpu_torch.ops.swin_attention import to_windows
+    if qg is None:
+        q, k, v = to_windows(proj, ws, 3, heads)  # (B, H, nW, L, D)
+    else:
+        k, v = to_windows(proj, ws, 2, heads)
+        b, _, _, L, d = k.shape
+        q = qg.reshape(b, L, heads, d).permute(0, 2, 1, 3)[:, :, None].expand_as(k)
+    b, _, nw, L, d = k.shape
+    attn = None
+    if bias is not None:
+        attn = bias.view(heads, 1, L, L).expand(heads, nw, L, L)
+        attn = attn.reshape(1, heads * nw, L, L).to(proj.dtype).contiguous()
+    q, k, v = (t.reshape(b, heads * nw, L, d).contiguous() for t in (q, k, v))
+    return q, k, v, attn
+
+
+def dot_cost(kind, b, hp, wp, c, heads, ws, itemsize, with_bias):
+    """Bytes each kernel must move (each input read once, each output written
+    once) and the operations of its products."""
+    tokens, L = b * hp * wp, ws * ws
+    small = 4 * heads * L * L * with_bias
+    if kind == "K3a":
+        return itemsize * tokens * 4 * c + small + 4 * heads, 4 * tokens * L * c
+    if kind == "K3b":
+        return itemsize * tokens * 7 * c + 2 * small + 4 * heads, 10 * tokens * L * c
+    if kind == "K4":
+        return itemsize * (tokens * 3 * c + b * L * c) + small + 4 * heads, 4 * tokens * L * c
+    return (itemsize * (tokens * 5 * c + b * L * c) + 4 * b * L * c + 2 * small + 4 * heads,
+            10 * tokens * L * c)
+
+
+_DOT = {
+    # kind: (wrapper, plain, source, replaces, parts, backward, output names)
+    "K3a": ("window_attention_fwd_cuda", "window_attention_fwd_plain", "window_attention_fwd",
+            "torchok_tpu/ops/swin_attention.py:93", 3, False, ("out",)),
+    "K3b": ("window_attention_bwd_cuda", "window_attention_bwd_plain", "window_attention_bwd",
+            "torchok_tpu/ops/swin_attention.py:159", 3, True, ("dqkv", "dbias")),
+    "K4": ("window_attention_global_fwd_cuda", "window_attention_global_fwd_plain",
+           "window_attention_global_fwd", "torchok_tpu/ops/swin_attention.py:267", 2, False,
+           ("out",)),
+    "K5": ("window_attention_global_bwd_cuda", "window_attention_global_bwd_plain",
+           "window_attention_global_bwd", "torchok_tpu/ops/swin_attention.py:294", 2, True,
+           ("dkv", "dqg", "dbias")),
+}
+
+
+def check_dot(kind, cases, timing=True):
+    """One plain window attention kernel against its plain version at every
+    shape in ``cases`` = [(label, (hp, wp, c, heads, ws), with_bias, launches
+    per forward or backward of its model, counts towards the record)], in f32
+    at B 8 and bf16 at B 128; backward kernels twice for bit equality. Returns
+    the JSON record, whose times are summed over the cases that count."""
+    import torch
+    import torch.nn.functional as F
+    from torchok_tpu_torch.ops import window_attention_dot as dot
+    wrapper_name, plain_name, source, replaces, parts, backward, names = _DOT[kind]
+    wrapper, plain = getattr(dot, wrapper_name), getattr(dot, plain_name)
+    failures = []
+    worst_bf16 = 0.0
+    total = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0, "launches": 0}
+    by_model = {}
+
+    def call(fn, proj, qg, scale, bias, dout, ws, heads):
+        args = (proj,) + ((qg,) if parts == 2 else ()) + (scale, bias)
+        out = fn(*args, *((dout,) if backward else ()), ws, heads)
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(t for t in out if t is not None)
+
+    for dtype, batch in ((torch.float32, CHECK_BATCH), (torch.bfloat16, 128)):
+        name = str(dtype).split(".")[-1]
+        for idx, (label, (hp, wp, c, heads, ws), with_bias, n, counts) in enumerate(cases):
+            inputs = dot_inputs(batch, hp, wp, c, heads, ws, dtype, parts, with_bias, 20 + idx)
+            got = call(wrapper, *inputs, ws, heads)
+            again = call(wrapper, *inputs, ws, heads) if backward else got
+            ref = call(plain, *inputs, ws, heads)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = ok and all(bool(torch.isfinite(t).all().item()) for t in got)
+            parts_txt = []
+            for key, g, r in zip((k for k in names if with_bias or k != "dbias"), got, ref):
+                err = (g.float() - r.float()).abs().max().item()
+                if backward:
+                    rel = DOT_BWD_TOLERANCE[name][key]
+                    mag = r.float().abs().max().item()
+                    ok = ok and err <= rel * mag
+                    parts_txt.append(f"{key} err={err:.3e} (tol {rel:g} x max|ref| {mag:.3e})")
+                else:
+                    ok = ok and err <= TOLERANCE[name]
+                    parts_txt.append(f"max_abs_err={err:.3e} (tol {TOLERANCE[name]:g})")
+                if name == "bfloat16" and key in ("out", "dqkv", "dkv"):
+                    worst_bf16 = max(worst_bf16, err)
+            del got, again, ref
+            width = parts * c
+            line = (f"{kind} {name} B{batch} {label} proj=({batch},{hp},{wp},{width}) "
+                    f"heads={heads} ws={ws} bias={with_bias} x{n}: " + ", ".join(parts_txt)
+                    + (", bit-equal twice" if backward else ""))
+            if timing:
+                iters = TIMING_ITERS if batch > CHECK_BATCH else TIMING_ITERS_SMALL
+                k_ms = median_ms(lambda: call(wrapper, *inputs, ws, heads), iters)
+                p_ms = median_ms(lambda: call(plain, *inputs, ws, heads), iters)
+                line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+                if batch == 128:
+                    proj, qg, _, bias, _ = inputs
+                    q, k, v, attn = dot_sdpa_inputs(proj, qg, bias, ws, heads)
+                    if backward:
+                        for t in (q, k, v):
+                            t.requires_grad_(True)
+                        dwin = torch.randn_like(q)
+
+                        def library():
+                            out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn)
+                            torch.autograd.grad(out, (q, k, v), dwin)
+                    else:
+                        def library():
+                            F.scaled_dot_product_attention(q, k, v, attn_mask=attn)
+                    lib_ms = median_ms(library, iters)
+                    nbytes, flops = dot_cost(kind, batch, hp, wp, c, heads, ws, 2, with_bias)
+                    b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
+                    line += (f" sdpa{'_fwd_bwd' if backward else ''}_ms={lib_ms:.4f} "
+                             f"bound_ms={b_ms:.4f}")
+                    model = label.split()[0]
+                    sums = by_model.setdefault(model, [0.0, 0.0, 0.0, 0])
+                    for i, v_ in enumerate((n * k_ms, n * p_ms, n * lib_ms, n)):
+                        sums[i] += v_
+                    if counts:
+                        total["k"] += n * k_ms
+                        total["p"] += n * p_ms
+                        total["lib"] += n * lib_ms
+                    del q, k, v, attn
+            if batch == 128 and counts:
+                nbytes, flops = dot_cost(kind, batch, hp, wp, c, heads, ws, 2, with_bias)
+                total["bytes"] += n * nbytes
+                total["flops"] += n * flops
+                total["launches"] += n
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+            del inputs
+    if failures:
+        fail(f"{kind} disagrees with its plain version or with itself: " + "; ".join(failures))
+    total_bound, bound_by = bound_ms(total["bytes"], total["flops"], "bfloat16")
+    for model, (k_ms, p_ms, lib_ms, n) in by_model.items():
+        print(f"{kind} bf16 bs128 per {'backward' if backward else 'forward'} of {model} "
+              f"({n} launches): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"sdpa{'_fwd_bwd' if backward else ''}_ms={lib_ms:.4f}", flush=True)
+    print(f"{kind} record ({total['launches']} launches of gcvit_tiny): "
+          f"bound_ms={total_bound:.4f} ({bound_by}: {total['bytes'] / 1e9:.3f} GB, "
+          f"{total['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    return {"name": source, "route": "cuda", "source": f"torchok_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": worst_bf16,
+            "ms": total["k"], "plain_ms": total["p"], "bound_ms": total_bound,
+            "bound_by": bound_by, "library_ms": total["lib"] if timing else None}
+
+
+def gcvit_cases(column):
+    """GCViT-tiny's stage shapes with the launches of one kind per forward
+    (``column`` 5: local blocks, 6: global blocks); these make the record."""
+    return [(f"gcvit_tiny stage{i}", st[:5], True, st[column], True)
+            for i, st in enumerate(GCVIT_STAGES, 1)]
+
+
+def check_k3(timing=True):
+    """K3a and K3b at GCViT-tiny's local shapes (with the bias) and DaViT-t's
+    (without); the records sum GCViT-tiny's 17 launches."""
+    cases = gcvit_cases(5) + [(f"davit_t stage{i}", st[:5], False, st[5], False)
+                              for i, st in enumerate(DAVIT_STAGES, 1)]
+    return check_dot("K3a", cases, timing), check_dot("K3b", cases, timing)
+
+
+def check_k4(timing=True):
+    return check_dot("K4", gcvit_cases(6), timing)
+
+
+def check_k5(timing=True):
+    return check_dot("K5", gcvit_cases(6), timing)
+
+
+def launch_counts():
+    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
+    return {k: v for k, v in LAUNCHES.items() if v}
+
+
+def require_launches(label, counts, want):
+    """``counts`` must hold exactly the kernel launches in ``want`` and no
+    call of a plain version (any other key of the shared counter)."""
+    if counts != {k: v for k, v in want.items() if v}:
+        fail(f"{label}: expected launches {want} and no plain call, got {counts}")
+
+
+def run_slice(label, config, per_forward, records, image_size):
+    """The inference slice of one model: ``per_forward`` maps each kernel to
+    its launches per forward; ``records`` maps it to its JSON record."""
     import numpy as np
     import torch
     from torchok_tpu_torch.__main__ import run
-    from torchok_tpu_torch.ops import swin_attention as ops
+    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
 
     # warm-up run (cuDNN/cuBLAS plans, allocator) outside the measured one
-    warm = copy.deepcopy(SLICE_CONFIG)
+    warm = copy.deepcopy(config)
     warm["trainer"]["limit_test_batches"] = 1
     run(warm, "test")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.LAUNCHES.clear()
-    trainer, logs = run(copy.deepcopy(SLICE_CONFIG), "test")
+    LAUNCHES.clear()
+    trainer, logs = run(copy.deepcopy(config), "test")
     torch.cuda.synchronize()
-    test_counts = dict(ops.LAUNCHES)
+    test_counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     stats = trainer.last_eval
-    print(f"slice test: {stats['images']} images in {stats['seconds']:.4f} s = "
+    print(f"{label} test: {stats['images']} images in {stats['seconds']:.4f} s = "
           f"{stats['images'] / stats['seconds']:.2f} img/s (bs128 bf16, 3 batches, host "
           f"clock incl. loading); peak device memory {peak / 2**20:.1f} MiB; "
           f"launches {test_counts}; logs {logs}", flush=True)
 
-    ops.LAUNCHES.clear()
-    trainer, preds = run(copy.deepcopy(SLICE_CONFIG), "predict")
+    LAUNCHES.clear()
+    trainer, preds = run(copy.deepcopy(config), "predict")
     torch.cuda.synchronize()
-    predict_counts = dict(ops.LAUNCHES)
-    print(f"slice predict: {len(preds)} batches; launches {predict_counts}", flush=True)
+    predict_counts = launch_counts()
+    print(f"{label} predict: {len(preds)} batches; launches {predict_counts}", flush=True)
 
-    want = 12 * BATCHES
-    for mode, counts in (("test", test_counts), ("predict", predict_counts)):
-        if counts.get(ops.KERNEL, 0) != want or counts.get(ops.PLAIN, 0) != 0:
-            fail(f"{mode}: expected {want} kernel launches and 0 plain calls, got {counts}")
+    want = {k: n * BATCHES for k, n in per_forward.items()}
+    require_launches(f"{label} test", test_counts, want)
+    require_launches(f"{label} predict", predict_counts, want)
     for key in ("test/Accuracy", "test/F1Score"):
         if key not in logs or not math.isfinite(logs[key]):
-            fail(f"{key} missing or not finite in {logs}")
+            fail(f"{label}: {key} missing or not finite in {logs}")
     if len(preds) != BATCHES:
-        fail(f"predict returned {len(preds)} batches, expected {BATCHES}")
+        fail(f"{label}: predict returned {len(preds)} batches, expected {BATCHES}")
     for p in preds:
         logits = p["prediction"]
         if logits.shape != (128, 1000) or not np.isfinite(logits).all():
-            fail(f"bad logits: shape {logits.shape}, finite {bool(np.isfinite(logits).all())}")
+            fail(f"{label}: bad logits: shape {logits.shape}, "
+                 f"finite {bool(np.isfinite(logits).all())}")
 
-    # reference on a small input: the same weights in f32, kernel on the
+    # reference on a small input: the same weights in f32, kernels on the
     # card against the plain attention on the CPU
     model = trainer.state.model.float()
     image = torch.from_numpy(trainer.task.predict_dataloader()[0].dataset.images[:2])
+    if tuple(image.shape[1:3]) != (image_size, image_size):
+        fail(f"{label}: images are {tuple(image.shape)}, expected {image_size} px")
     image = (image.float() / 255.0 - 0.45) / 0.225
     batch = {"image": image.permute(0, 3, 1, 2).contiguous()}
     with torch.inference_mode():
         on_card = model({"image": batch["image"].cuda()})["prediction"].cpu()
         on_cpu = model.cpu()({"image": batch["image"]})["prediction"]
     err = (on_card - on_cpu).abs().max().item()
-    print(f"slice reference (f32, 2 images, card vs CPU): max_abs_err={err:.3e} "
+    print(f"{label} reference (f32, 2 images, card vs CPU): max_abs_err={err:.3e} "
           f"(tol 1e-3), logit scale {on_cpu.abs().max().item():.3e}", flush=True)
     if not err <= 1e-3:
-        fail(f"model logits on the card differ from the CPU run by {err:.3e}")
-    record["launches"] = test_counts[ops.KERNEL]
+        fail(f"{label}: model logits on the card differ from the CPU run by {err:.3e}")
+    for kernel, count in test_counts.items():
+        records[kernel]["launches"] += count
 
 
-def smoke_train_config(epochs: int):
-    """TRAIN_CONFIG with the train set cut to one batch, repeated for
-    ``epochs`` one-step epochs (so each epoch's ``train/loss`` is one step's
-    loss), one sanity validation batch and one validation batch at the end."""
-    cfg = copy.deepcopy(TRAIN_CONFIG)
-    cfg["data"]["TRAIN"] = _synthetic(128, False, True)
-    cfg["data"]["VALID"] = _synthetic(128, False, False, seed=1)
+def smoke_train_config(epochs: int, config=None, size: int = 256):
+    """A train recipe (``TRAIN_CONFIG`` by default) with the train set cut to
+    one batch, repeated for ``epochs`` one-step epochs (so each epoch's
+    ``train/loss`` is one step's loss), one sanity validation batch and one
+    validation batch at the end."""
+    cfg = copy.deepcopy(TRAIN_CONFIG if config is None else config)
+    cfg["data"]["TRAIN"] = _synthetic(128, False, True, size)
+    cfg["data"]["VALID"] = _synthetic(128, False, False, size, seed=1)
     cfg["trainer"].update(max_epochs=epochs, check_val_every_n_epoch=epochs)
     return cfg
 
 
-def run_train_slice(k1_record, k2_record):
+def run_train_slice(label, config, size, per_forward, per_backward, must_move, records):
+    """The train slice of one model: ``per_forward`` / ``per_backward`` map
+    each kernel to its launches per forward / per train step; ``must_move``
+    lists name fragments of parameters that have to change."""
     import torch
     from torchok_tpu_torch.__main__ import run
     from torchok_tpu_torch.engine.callbacks import Callback
-    from torchok_tpu_torch.ops import swin_attention as ops
+    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
 
     class Recorder(Callback):
         def __init__(self):
@@ -476,73 +736,74 @@ def run_train_slice(k1_record, k2_record):
             self.epochs.append(dict(logs))
 
     # warm-up run (cuBLAS plans, allocator, optimizer kernels) outside the measured one
-    run(smoke_train_config(2), "train")
+    run(smoke_train_config(2, config, size), "train")
     torch.cuda.synchronize()
 
     recorder = Recorder()
     torch.cuda.reset_peak_memory_stats()
-    ops.LAUNCHES.clear()
-    trainer, logs = run(smoke_train_config(TRAIN_STEPS), "train", [recorder])
+    LAUNCHES.clear()
+    trainer, logs = run(smoke_train_config(TRAIN_STEPS, config, size), "train", [recorder])
     torch.cuda.synchronize()
-    counts = dict(ops.LAUNCHES)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     stats = trainer.last_fit
     losses = [e["train/loss"] for e in recorder.epochs]
-    print(f"train slice: {stats['steps']} steps, {stats['images']} images in "
+    print(f"{label} train: {stats['steps']} steps, {stats['images']} images in "
           f"{stats['seconds']:.4f} s = {stats['images'] / stats['seconds']:.2f} img/s "
           f"(bs128 bf16, a smoke reading: host clock, first fetch to each step's loss "
           f"read-back, one step per epoch); peak device memory {peak / 2**20:.1f} MiB; "
           f"launches {counts}", flush=True)
-    print("train losses per step: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
-    print(f"last epoch logs: {logs}", flush=True)
+    print(f"{label} train losses per step: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    print(f"{label} last epoch logs: {logs}", flush=True)
 
     eval_batches = 2  # one sanity batch, one validation batch after the last epoch
-    want_k1 = 12 * (TRAIN_STEPS + eval_batches)
-    want_k2 = 12 * TRAIN_STEPS
-    if (counts.get(ops.KERNEL, 0) != want_k1 or counts.get(ops.KERNEL_BWD, 0) != want_k2
-            or counts.get(ops.PLAIN, 0) or counts.get(ops.PLAIN_BWD, 0)):
-        fail(f"train: expected {want_k1} K1 and {want_k2} K2 launches and no plain call, "
-             f"got {counts}")
+    want = {k: n * (TRAIN_STEPS + eval_batches) for k, n in per_forward.items()}
+    want.update({k: n * TRAIN_STEPS for k, n in per_backward.items()})
+    require_launches(f"{label} train", counts, want)
     if stats["steps"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
-        fail(f"train: expected {TRAIN_STEPS} steps, got {stats['steps']} ({len(losses)} logged)")
+        fail(f"{label} train: expected {TRAIN_STEPS} steps, got {stats['steps']} "
+             f"({len(losses)} logged)")
     if not all(math.isfinite(v) for v in losses):
-        fail(f"train: a loss is not finite: {losses}")
+        fail(f"{label} train: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall on the repeated batch: {losses}")
+        fail(f"{label} train: the loss did not fall on the repeated batch: {losses}")
     for key in ("valid/Accuracy", "valid/loss"):
         if key not in logs or not math.isfinite(logs[key]):
-            fail(f"{key} missing or not finite in {logs}")
-    moved = {"qkv": False, "cpb_mlp": False, "logit_scale": False}
+            fail(f"{label}: {key} missing or not finite in {logs}")
+    moved = dict.fromkeys(must_move, False)
     for name, value in trainer.state.model.state_dict().items():
         if not bool(torch.isfinite(value).all().item()):
-            fail(f"train: parameter {name} is not finite")
+            fail(f"{label} train: parameter {name} is not finite")
         for key in moved:
             if key in name and not torch.equal(value, recorder.initial[name]):
                 moved[key] = True
     if not all(moved.values()):
-        fail(f"train: parameters that never changed: {[k for k, v in moved.items() if not v]}")
-    k1_record["launches"] += counts[ops.KERNEL]
-    k2_record["launches"] = counts[ops.KERNEL_BWD]
+        fail(f"{label} train: parameters that never changed: "
+             f"{[k for k, v in moved.items() if not v]}")
+    for kernel, count in counts.items():
+        records[kernel]["launches"] += count
 
 
-def gradient_reference():
+def gradient_reference(label, config, size, want, probe):
     """One f32 forward + backward of the full-width model on two images: the
-    card (K1 + K2) against the CPU (plain versions), all parameter gradients."""
+    card (the kernels in ``want``, with their launch counts) against the CPU
+    (plain versions), all parameter gradients. ``probe`` names a parameter
+    that must be among them."""
     import torch
     import torchok_tpu_torch  # noqa: F401 — registers the components
     from torchok_tpu_torch.constructor import TASKS
     from torchok_tpu_torch.constructor.config import config_from_dict
     from torchok_tpu_torch.constructor.config_structure import merge_structured
-    from torchok_tpu_torch.ops import swin_attention as ops
+    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
 
-    cfg = copy.deepcopy(TRAIN_CONFIG)
+    cfg = copy.deepcopy(config)
     cfg["task"]["params"]["backbone_params"]["drop_path_rate"] = 0.0
     config = merge_structured(config_from_dict(cfg))
     task = TASKS.get(config.task.name)(config, **config.task.params.to_dict())
     generator = torch.Generator()
     generator.manual_seed(5)
     task.init_weights(generator)
-    image = torch.randn((2, 3, 256, 256), generator=generator)
+    image = torch.randn((2, 3, size, size), generator=generator)
     target = torch.tensor([3, 977])
 
     def grads(device):
@@ -551,31 +812,34 @@ def gradient_reference():
         out = model({"image": image.to(device), "target": target.to(device)})
         total, _ = task.compute_loss(out)
         total.backward()
-        # the three inner feature norms take no part in classification: no gradient
+        # parameters outside the classification path (SwinV2's three inner
+        # feature norms) get no gradient
         return {n: p.grad.detach().cpu() for n, p in model.named_parameters()
                 if p.grad is not None}, total.item()
 
-    ops.LAUNCHES.clear()
+    LAUNCHES.clear()
     on_card, loss_card = grads(torch.device("cuda", 0))
     torch.cuda.synchronize()
-    counts = dict(ops.LAUNCHES)
+    counts = launch_counts()
     on_cpu, loss_cpu = grads(torch.device("cpu"))
-    if set(on_card) != set(on_cpu) or not any("cpb_mlp" in n for n in on_cpu):
-        fail("gradient reference: the card and the CPU gave gradients to different parameters")
+    if set(on_card) != set(on_cpu) or not any(probe in n for n in on_cpu):
+        fail(f"{label} gradient reference: the card and the CPU gave gradients to "
+             "different parameters")
     worst_name, worst, largest = "", 0.0, 0.0
     for name, ref in on_cpu.items():
         err = (on_card[name] - ref).abs().max().item()
         largest = max(largest, ref.abs().max().item())
         if err > worst:
             worst_name, worst = name, err
-    tol = 1e-3 * largest  # f32 on both sides, other summation orders through 12 blocks
-    print(f"gradient reference (f32, 2 images, card K1+K2 vs CPU plain): loss {loss_card:.6f} "
-          f"vs {loss_cpu:.6f}; max_abs_err={worst:.3e} at {worst_name} (tol 1e-3 x largest "
-          f"gradient {largest:.3e} = {tol:.3e}); launches {counts}", flush=True)
-    if counts.get(ops.KERNEL, 0) != 12 or counts.get(ops.KERNEL_BWD, 0) != 12:
-        fail(f"gradient reference: expected 12 K1 and 12 K2 launches on the card, got {counts}")
+    tol = 1e-3 * largest  # f32 on both sides, other summation orders through every block
+    print(f"{label} gradient reference (f32, 2 images, card kernels vs CPU plain): loss "
+          f"{loss_card:.6f} vs {loss_cpu:.6f}; max_abs_err={worst:.3e} at {worst_name} "
+          f"(tol 1e-3 x largest gradient {largest:.3e} = {tol:.3e}); launches {counts}",
+          flush=True)
+    require_launches(f"{label} gradient reference (card)", counts, want)
     if not worst <= tol:
-        fail(f"gradients on the card differ from the CPU run by {worst:.3e} at {worst_name}")
+        fail(f"{label}: gradients on the card differ from the CPU run by {worst:.3e} "
+             f"at {worst_name}")
 
 
 def main() -> None:
@@ -594,22 +858,44 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from torchok_tpu_torch.ops import swin_attention as ops
-    from torchok_tpu_torch.utils.cuda_build import build_log
+    from torchok_tpu_torch.ops import swin_attention as swin
+    from torchok_tpu_torch.ops import window_attention_dot as dot
+    from torchok_tpu_torch.utils.cuda_build import build_log, load_libraries
+    kernels = (swin.KERNEL, swin.KERNEL_BWD) + dot.KERNELS
     start = time.perf_counter()
-    ops.build()
-    print(f"built {ops.KERNEL} and {ops.KERNEL_BWD} side by side in "
-          f"{time.perf_counter() - start:.2f} s", flush=True)
-    for kernel in (ops.KERNEL, ops.KERNEL_BWD):
-        print(build_log(kernel).strip(), flush=True)
+    load_libraries(kernels)
+    print(f"built {', '.join(kernels)} side by side in {time.perf_counter() - start:.2f} s",
+          flush=True)
+    for kernel in kernels:
+        # registers, shared memory and spills of each instantiation
+        print("\n".join(ln for ln in build_log(kernel).splitlines()
+                        if not ln.startswith("ptxas info    : Compiling")
+                        and "Function properties" not in ln), flush=True)
 
-    k1_record = check_k1()
-    k2_record = check_k2()
-    run_slice(k1_record)
-    run_train_slice(k1_record, k2_record)
-    gradient_reference()
+    k1, k2 = check_k1(), check_k2()
+    k3a, k3b = check_k3()
+    k4, k5 = check_k4(), check_k5()
+    records = {r["name"]: r for r in (k1, k2, k3a, k3b, k4, k5)}
 
-    print(json.dumps({"kernels": [k1_record, k2_record]}), flush=True)
+    swin_fwd, swin_bwd = {swin.KERNEL: 12}, {swin.KERNEL_BWD: 12}
+    run_slice("swinv2_tiny", SLICE_CONFIG, swin_fwd, records, 256)
+    run_train_slice("swinv2_tiny", TRAIN_CONFIG, 256, swin_fwd, swin_bwd,
+                    ("qkv", "cpb_mlp", "logit_scale"), records)
+    gradient_reference("swinv2_tiny", TRAIN_CONFIG, 256, {**swin_fwd, **swin_bwd}, "cpb_mlp")
+
+    gcvit_fwd = {dot.KERNEL: GCVIT_LOCAL, dot.KERNEL_GLOBAL: GCVIT_GLOBAL}
+    gcvit_bwd = {dot.KERNEL_BWD: GCVIT_LOCAL, dot.KERNEL_GLOBAL_BWD: GCVIT_GLOBAL}
+    run_slice("gcvit_tiny", GCVIT_SLICE_CONFIG, gcvit_fwd, records, 224)
+    # stages.0.blocks.1 is a global block: its qkv emits k and v only
+    run_train_slice("gcvit_tiny", GCVIT_TRAIN_CONFIG, 224, gcvit_fwd, gcvit_bwd,
+                    ("relative_position_bias_table", "stages.0.blocks.1.attn.qkv",
+                     "global_block"), records)
+    gradient_reference("gcvit_tiny", GCVIT_TRAIN_CONFIG, 224, {**gcvit_fwd, **gcvit_bwd},
+                       "relative_position_bias_table")
+    run_train_slice("davit_t", DAVIT_TRAIN_CONFIG, 224, {dot.KERNEL: DAVIT_SPATIAL},
+                    {dot.KERNEL_BWD: DAVIT_SPATIAL}, ("main_blocks.0.0.0.attn.qkv",), records)
+
+    print(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

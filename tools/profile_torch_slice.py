@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the device time of the torchok_tpu_torch SwinV2-tiny slices goes, on
-one NVIDIA GPU.
+"""Where the device time of the torchok_tpu_torch slices goes, on one NVIDIA
+GPU.
 
-    python tools/profile_torch_slice.py [--mode eval|train] [--batches 3] [--trace PATH]
+    python tools/profile_torch_slice.py [--model swinv2|gcvit_tiny|davit_t]
+        [--mode eval|train] [--batches 3] [--trace PATH]
 
-``--mode eval`` builds the inference slice from ``chip_smoke.SLICE_CONFIG``
-(bs 128, bf16 autocast) through ``torchok_tpu_torch.__main__.run`` (one
-warm-up batch) and profiles the trainer's eval loop; ``--mode train`` builds
-the train slice from ``chip_smoke.TRAIN_CONFIG`` (two warm-up steps) and
-profiles the trainer's train step on ``--batches`` batches of its loader.
+``--mode eval`` builds the model's inference slice from ``chip_smoke``'s
+config (bs 128, bf16 autocast; davit_t has a train recipe only, so its eval
+slice is that recipe's validation data) through
+``torchok_tpu_torch.__main__.run`` (one warm-up batch) and profiles the
+trainer's eval loop; ``--mode train`` builds the train slice from
+``chip_smoke``'s train config (two warm-up steps) and profiles the trainer's
+train step on ``--batches`` batches of its loader.
 Either runs under ``torch.profiler`` and prints: device time by kernel (top
 25), device time by kind of kernel, the loop's wall time and the share of it
 with no kernel running. ``--trace`` writes a Chrome trace. Timing runs with
@@ -28,11 +31,22 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_GLOBAL = r"(<[^>]*(, true|\(bool\)1)>|.*Lb1EEEv)"
 KINDS = [  # first match wins
     ("K2 swin_attention_bwd", r"swin_attention_bwd"),
     ("K1 swin_attention_fwd", r"swin_attention_fwd"),
+    # the global and local kernels are instantiations of one template: the
+    # last template argument (kGlobal) tells them apart, demangled or not
+    ("K5 window_attention_global_bwd", r"window_attention_bwd_kernel" + _GLOBAL),
+    ("K3b window_attention_bwd", r"window_attention_bwd_kernel"),
+    ("K3b/K5 dbias reduce", r"window_attention_bwd_reduce"),
+    ("K4 window_attention_global_fwd", r"window_attention_fwd_kernel" + _GLOBAL),
+    ("K3a window_attention_fwd", r"window_attention_fwd_kernel"),
     ("optimizer (Adam, foreach)", r"multi_tensor_apply|[Aa]dam"),
-    ("conv (patch embed)", r"conv|cudnn|implicit_gemm|xmma_fprop"),
+    ("max pool", r"max_pool|MaxPool"),
+    # cuDNN names its depthwise kernels by one channel per group (c1_k1)
+    ("depthwise conv", r"[Dd]epthwise|2d_c1_k1"),
+    ("conv (stem, downsample, embed)", r"conv|cudnn|implicit_gemm|xmma_fprop|wgrad|dgrad"),
     ("GEMM (Linear)", r"gemm|cutlass|nvjet|sm90_xmma|cublas"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
     ("GELU", r"gelu|GeluCUDAKernel"),
@@ -52,6 +66,7 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--model", choices=("swinv2", "gcvit_tiny", "davit_t"), default="swinv2")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=3)
     parser.add_argument("--trace", default=None, help="write a Chrome trace here")
@@ -69,8 +84,16 @@ def main() -> None:
     from torchok_tpu_torch.constructor.config_structure import Phase
 
     print(chip_smoke.card_line())
+    train_config = {"swinv2": chip_smoke.TRAIN_CONFIG, "gcvit_tiny": chip_smoke.GCVIT_TRAIN_CONFIG,
+                    "davit_t": chip_smoke.DAVIT_TRAIN_CONFIG}[args.model]
     if args.mode == "eval":
-        cfg = copy.deepcopy(chip_smoke.SLICE_CONFIG)
+        cfg = {"swinv2": chip_smoke.SLICE_CONFIG,
+               "gcvit_tiny": chip_smoke.GCVIT_SLICE_CONFIG}.get(args.model)
+        if cfg is None:
+            cfg = {k: v for k, v in train_config.items()
+                   if k not in ("joint_loss", "optimization", "data")}
+            cfg["data"] = {"TEST": train_config["data"]["VALID"]}
+        cfg = copy.deepcopy(cfg)
         cfg["trainer"]["limit_test_batches"] = 1  # warm-up: kernels built, plans chosen
         trainer, _ = run(cfg, "test")
         task = trainer.task
@@ -81,7 +104,7 @@ def main() -> None:
         def loop():
             trainer._run_eval(task, eval_step, loaders, Phase.TEST, args.batches)
     else:
-        cfg = copy.deepcopy(chip_smoke.TRAIN_CONFIG)
+        cfg = copy.deepcopy(train_config)
         cfg["trainer"].update(max_epochs=1, limit_train_batches=2, limit_val_batches=1,
                               num_sanity_val_steps=0)  # warm-up: two steps, one val batch
         trainer, _ = run(cfg, "train")
@@ -133,7 +156,8 @@ def main() -> None:
         by_kind[kind_of(name)] += us
 
     n = args.batches
-    print(f"{args.mode} loop: {n} batches of 128, wall {wall_ms:.3f} ms (profiler on), "
+    print(f"{args.model} {args.mode} loop: {n} batches of 128, wall {wall_ms:.3f} ms "
+          f"(profiler on), "
           f"kernel time {total_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1 - busy_us / 1e3 / wall_ms:.4f}")
     print(f"{'kind':32s} {'ms/batch':>10s} {'share':>7s}")

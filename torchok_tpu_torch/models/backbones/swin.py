@@ -17,20 +17,18 @@ the backbone boundary.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint as checkpoint_util
 from torch import nn
 
 from torchok_tpu_torch.constructor import BACKBONES
 from torchok_tpu_torch.models.base import BaseBackbone
 from torchok_tpu_torch.models.modules.bricks.mlp import Mlp
-from torchok_tpu_torch.ops.common import Dropout, DropPath, replay_generator
+from torchok_tpu_torch.ops.common import Dropout, DropPath, checkpoint_block
 from torchok_tpu_torch.ops.swin_attention import fused_swin_attention
 
 
@@ -290,15 +288,7 @@ class SwinTransformerV2(BaseBackbone):
     def _block(self, blk: SwinBlock, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         if not (self.grad_checkpointing and self.training and torch.is_grad_enabled()):
             return blk(x, hw)
-        context_fn = checkpoint_util.noop_context_fn
-        generator = self.dropout_generator
-        if generator is not None:
-            state = generator.get_state()  # the recomputation redraws from here
-
-            def context_fn():
-                return contextlib.nullcontext(), replay_generator(generator, state)
-        return checkpoint_util.checkpoint(blk, x, hw, use_reentrant=False,
-                                          context_fn=context_fn)
+        return checkpoint_block(blk, self.dropout_generator, x, hw)
 
     def _features(self, x: torch.Tensor, every_stage: bool) -> List[torch.Tensor]:
         features = [x]

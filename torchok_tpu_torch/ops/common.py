@@ -2,9 +2,10 @@
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint as checkpoint_util
 from torch import nn
 
 
@@ -81,6 +82,21 @@ def replay_generator(generator: torch.Generator, state: torch.Tensor):
         yield
     finally:
         generator.set_state(now)
+
+
+def checkpoint_block(block: Callable[..., torch.Tensor], generator: Optional[torch.Generator],
+                     *args) -> torch.Tensor:
+    """``block(*args)`` with its activations recomputed in the backward
+    instead of kept (reference: ``torch.utils.checkpoint`` per block). With a
+    dropout ``generator`` the recomputation redraws from the state the
+    forward started at."""
+    context_fn = checkpoint_util.noop_context_fn
+    if generator is not None:
+        state = generator.get_state()
+
+        def context_fn():
+            return contextlib.nullcontext(), replay_generator(generator, state)
+    return checkpoint_util.checkpoint(block, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def trunc_normal_init(module: nn.Module, generator: torch.Generator,

@@ -158,17 +158,8 @@ _ARGTYPES = {
 
 def _function(name: str):
     """The ``extern "C"`` entry of ``csrc/<name>.cu`` (built at first use)."""
-    from torchok_tpu_torch.utils.cuda_build import load_library
-    fn = getattr(load_library(name), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def build() -> None:
-    """Compile (if needed) and load both kernels' libraries, side by side."""
-    from torchok_tpu_torch.utils.cuda_build import load_libraries
-    load_libraries([KERNEL, KERNEL_BWD])
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    return load_function(name, _ARGTYPES[name])
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device: torch.device) -> None:

@@ -1,0 +1,469 @@
+"""Fused plain (scaled dot-product) window attention on the unpartitioned
+spatial layout, forward and backward: the non-cosine sibling of
+``ops/swin_attention.py`` for DaViT spatial blocks and GCViT local and global
+blocks.
+
+Port of ``torchok_tpu.ops.swin_attention.fused_window_attention``,
+``fused_window_attention_global`` and their common entry
+``window_attention_spatial``. The projection stays ``(B, Hp, Wp, 3C)`` (qkv)
+or ``(B, Hp, Wp, 2C)`` (kv, with the image's shared ``(B, L, C)`` global
+queries beside it) and the result is ``(B, Hp, Wp, C)``: partition and
+reverse are folded into the op. The JAX package partitions in XLA for the
+window sizes its TPU compiler cannot relayout (7, 14) and so takes windowed
+kv in its global op; here every window size up to 16 goes through the same
+spatial indexing.
+
+A CUDA tensor goes to the hand-written Hopper kernels
+``csrc/window_attention_{fwd,bwd}.cu`` and
+``csrc/window_attention_global_{fwd,bwd}.cu`` (they launch or raise); a CPU
+tensor goes to the plain PyTorch versions of the same arithmetic below, which
+the CPU tests compare with the JAX package and ``chip_smoke.py`` compares
+with the kernels on the card.
+
+Rounding points (those of the Pallas kernels): q and k enter the product in
+the input dtype with f32 accumulation; the logits, the per-head scale (applied
+to the logits, not to q), the bias and the softmax are f32; the weights are
+cast to the input dtype for ``a v``; the output is cast to the input dtype. In
+the backward ``dl`` is f32, ``dls = dl * scale`` is cast to the input dtype
+before the two products with it, and ``dbias`` sums the f32 ``dl``. The global
+queries are cast to kv's dtype; their gradient leaves the backward in f32 and
+is cast to the queries' dtype by the autograd function. ``scale`` gets no
+gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from torchok_tpu_torch.ops.swin_attention import (LAUNCHES, _DTYPE_CODE, _check,
+                                                  _images_per_block, from_windows, to_windows)
+
+KERNEL = "window_attention_fwd"
+PLAIN = "window_attention_fwd_plain"
+KERNEL_BWD = "window_attention_bwd"
+PLAIN_BWD = "window_attention_bwd_plain"
+KERNEL_GLOBAL = "window_attention_global_fwd"
+PLAIN_GLOBAL = "window_attention_global_fwd_plain"
+KERNEL_GLOBAL_BWD = "window_attention_global_bwd"
+PLAIN_GLOBAL_BWD = "window_attention_global_bwd_plain"
+KERNELS = (KERNEL, KERNEL_BWD, KERNEL_GLOBAL, KERNEL_GLOBAL_BWD)
+
+_KERNEL_D = 32
+_KERNEL_MAX_WS = 16  # L = ws * ws <= 256 keys held in shared memory
+
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # qkv, scale, bias, out; dtype, B, Hp, Wp, C, nheads, ws; stream
+    KERNEL: [_VOID] * 4 + [_INT] * 7 + [_VOID],
+    # qkv, scale, bias, dout, dqkv, dbias, partial; dtype, B, Hp, Wp, C,
+    # nheads, ws, images_per_block; stream
+    KERNEL_BWD: [_VOID] * 7 + [_INT] * 8 + [_VOID],
+    # kv, qg, scale, bias, out; dtype, B, Hp, Wp, C, nheads, ws; stream
+    KERNEL_GLOBAL: [_VOID] * 5 + [_INT] * 7 + [_VOID],
+    # kv, qg, scale, bias, dout, dkv, dqg, dbias, partial; dtype, B, Hp, Wp,
+    # C, nheads, ws, images_per_block; stream
+    KERNEL_GLOBAL_BWD: [_VOID] * 9 + [_INT] * 8 + [_VOID],
+}
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+def _global_queries(qg: torch.Tensor, nheads: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, L, C) -> (B, H, 1, L, D) f32 values of ``dtype``, to broadcast over
+    the image's windows."""
+    b, L, c = qg.shape
+    q = qg.to(dtype).reshape(b, L, nheads, c // nheads).permute(0, 2, 1, 3)
+    return q[:, :, None].float()
+
+
+def _weights(q: torch.Tensor, k: torch.Tensor, scale: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """f32 softmax(q k^T * scale_h + bias_h) over (B, H, nW, L, D) f32 operands."""
+    nheads, L = k.shape[1], k.shape[3]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale.view(1, nheads, 1, 1, 1)
+    if bias is not None:
+        logits = logits + bias.view(1, nheads, 1, L, L)
+    return torch.softmax(logits, dim=-1)
+
+
+def window_attention_fwd_plain(qkv: torch.Tensor, scale: torch.Tensor,
+                               bias: Optional[torch.Tensor], ws: int,
+                               nheads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/window_attention_fwd.cu``. ``qkv``
+    (B, Hp, Wp, 3C), ``scale`` (H,) f32, ``bias`` (H, L, L) f32 or None."""
+    _, hp, wp, _ = qkv.shape
+    dtype = qkv.dtype
+    q, k, v = to_windows(qkv, ws, 3, nheads)
+    # the rounding points are explicit, so autocast must not add its own
+    with torch.autocast(qkv.device.type, enabled=False):
+        a = _weights(q.float(), k.float(), scale, bias).to(dtype)
+        o = torch.matmul(a.float(), v.float()).to(dtype)  # (B, H, nW, L, D)
+    return from_windows(o[None], ws, hp, wp)
+
+
+def window_attention_global_fwd_plain(kv: torch.Tensor, qg: torch.Tensor,
+                                      scale: torch.Tensor, bias: torch.Tensor, ws: int,
+                                      nheads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/window_attention_global_fwd.cu``. ``kv``
+    (B, Hp, Wp, 2C), ``qg`` (B, L, C) shared by the image's windows."""
+    _, hp, wp, _ = kv.shape
+    dtype = kv.dtype
+    k, v = to_windows(kv, ws, 2, nheads)
+    with torch.autocast(kv.device.type, enabled=False):
+        a = _weights(_global_queries(qg, nheads, dtype), k.float(), scale, bias).to(dtype)
+        o = torch.matmul(a.float(), v.float()).to(dtype)
+    return from_windows(o[None], ws, hp, wp)
+
+
+def _backward_core(q, k, v, do, scale, bias, dtype):
+    """The shared steps of both plain backwards on f32 (B, H, nW, L, D)
+    operands (``q`` may have one window, broadcast): (dq per window, dk, dv,
+    dbias or None), all f32."""
+    a32 = _weights(q, k, scale, bias)
+    a = a32.to(dtype).float()
+    dv = torch.matmul(a.transpose(-1, -2), do)
+    da = torch.matmul(do, v.transpose(-1, -2))
+    dl = a32 * (da - torch.sum(da * a32, dim=-1, keepdim=True))
+    dbias = None if bias is None else dl.sum(dim=(0, 2))
+    dls = (dl * scale.view(1, -1, 1, 1, 1)).to(dtype).float()
+    dq = torch.matmul(dls, k)
+    dk = torch.matmul(dls.transpose(-1, -2), q)
+    return dq, dk, dv, dbias
+
+
+def window_attention_bwd_plain(qkv: torch.Tensor, scale: torch.Tensor,
+                               bias: Optional[torch.Tensor], dout: torch.Tensor, ws: int,
+                               nheads: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of ``csrc/window_attention_bwd.cu``, written out
+    step by step with the kernel's rounding points. ``dout`` is (B, Hp, Wp, C).
+    Returns ``dqkv`` in qkv's dtype and ``dbias`` (H, L, L) f32, None without
+    a bias."""
+    _, hp, wp, _ = qkv.shape
+    dtype = qkv.dtype
+    q, k, v = to_windows(qkv, ws, 3, nheads)
+    do = to_windows(dout, ws, 1, nheads)[0]
+    with torch.autocast(qkv.device.type, enabled=False):
+        dq, dk, dv, dbias = _backward_core(q.float(), k.float(), v.float(), do.float(),
+                                           scale, bias, dtype)
+        dwin = torch.stack([dq, dk, dv]).to(dtype)
+    return from_windows(dwin, ws, hp, wp), dbias
+
+
+def window_attention_global_bwd_plain(kv: torch.Tensor, qg: torch.Tensor, scale: torch.Tensor,
+                                      bias: torch.Tensor, dout: torch.Tensor, ws: int,
+                                      nheads: int
+                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``csrc/window_attention_global_bwd.cu``.
+    Returns ``dkv`` in kv's dtype, ``dqg`` (B, L, C) f32 summed over each
+    image's windows and ``dbias`` (H, L, L) f32."""
+    b, hp, wp, _ = kv.shape
+    dtype = kv.dtype
+    k, v = to_windows(kv, ws, 2, nheads)
+    do = to_windows(dout, ws, 1, nheads)[0]
+    with torch.autocast(kv.device.type, enabled=False):
+        q = _global_queries(qg, nheads, dtype)
+        dq, dk, dv, dbias = _backward_core(q, k.float(), v.float(), do.float(),
+                                           scale, bias, dtype)
+        dqg = dq.sum(dim=2).permute(0, 2, 1, 3).reshape(b, ws * ws, -1)
+        dwin = torch.stack([dk, dv]).to(dtype)
+    return from_windows(dwin, ws, hp, wp), dqg, dbias
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _function(name: str):
+    """The ``extern "C"`` entry of ``csrc/<name>.cu``. The first call builds
+    all four sources side by side: a model that needs one needs the others."""
+    from torchok_tpu_torch.utils.cuda_build import load_function, load_libraries
+    load_libraries(KERNELS)
+    return load_function(name, _ARGTYPES[name])
+
+
+def _check_args(kernel: str, proj: torch.Tensor, parts: int, scale: torch.Tensor,
+                bias: Optional[torch.Tensor], ws: int, nheads: int) -> int:
+    """Raise on devices, shapes, types or layouts the kernels do not take;
+    returns C."""
+    if proj.device.type != "cuda":
+        raise ValueError(f"{kernel} takes CUDA tensors, got {proj.device}")
+    if proj.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got {proj.dtype}")
+    if proj.dim() != 4 or proj.shape[-1] % parts:
+        raise ValueError(f"{kernel} takes (B, Hp, Wp, {parts}C), got {tuple(proj.shape)}")
+    _, hp, wp, width = proj.shape
+    c = width // parts
+    if c != nheads * _KERNEL_D or not 1 <= ws <= _KERNEL_MAX_WS:
+        raise ValueError(f"{kernel} takes head dim {_KERNEL_D} and ws <= {_KERNEL_MAX_WS} "
+                         f"(L <= {_KERNEL_MAX_WS ** 2}); got head dim {c / nheads:g}, ws={ws}")
+    if hp % ws or wp % ws:
+        raise ValueError(f"Hp={hp}, Wp={wp} must be multiples of ws={ws}")
+    if not proj.is_contiguous():
+        raise ValueError("the projection must be contiguous")
+    _check_aligned(proj, "the projection")
+    _check(scale, "scale", (nheads,), torch.float32, proj.device)
+    if bias is not None:
+        _check(bias, "bias", (nheads, ws * ws, ws * ws), torch.float32, proj.device)
+    return c
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """The kernels move rows of 32 channels 16 bytes per thread."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def window_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
+                              bias: Optional[torch.Tensor], ws: int, nheads: int) -> torch.Tensor:
+    """Launch the Hopper forward kernel (arguments as the plain version)."""
+    c = _check_args(KERNEL, qkv, 3, scale, bias, ws, nheads)
+    b, hp, wp, _ = qkv.shape
+    out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = _function(KERNEL)(qkv.data_ptr(), scale.data_ptr(), _ptr(bias), out.data_ptr(),
+                            _DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
+    _raise_on(err, KERNEL)
+    return out
+
+
+def window_attention_global_fwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: torch.Tensor,
+                                     bias: torch.Tensor, ws: int, nheads: int) -> torch.Tensor:
+    """Launch the Hopper global-query forward kernel (arguments as the plain
+    version; ``qg`` in kv's dtype)."""
+    c = _check_args(KERNEL_GLOBAL, kv, 2, scale, bias, ws, nheads)
+    b, hp, wp, _ = kv.shape
+    _check(qg, "q_global", (b, ws * ws, c), kv.dtype, kv.device)
+    _check_aligned(qg, "q_global")
+    out = torch.empty((b, hp, wp, c), dtype=kv.dtype, device=kv.device)
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    err = _function(KERNEL_GLOBAL)(kv.data_ptr(), qg.data_ptr(), scale.data_ptr(),
+                                   bias.data_ptr(), out.data_ptr(), _DTYPE_CODE[kv.dtype],
+                                   b, hp, wp, c, nheads, ws, stream)
+    _raise_on(err, KERNEL_GLOBAL)
+    return out
+
+
+def window_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
+                              bias: Optional[torch.Tensor], dout: torch.Tensor, ws: int,
+                              nheads: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the Hopper backward kernel and, with a bias, its reduction
+    (arguments and results as the plain version)."""
+    c = _check_args(KERNEL_BWD, qkv, 3, scale, bias, ws, nheads)
+    b, hp, wp, _ = qkv.shape
+    _check(dout, "dout", (b, hp, wp, c), qkv.dtype, qkv.device)
+    _check_aligned(dout, "dout")
+    L = ws * ws
+    nw = (hp // ws) * (wp // ws)
+    # one block per (window position, head) and slice of the images
+    per_block = _images_per_block(b, nw * nheads, qkv.device)
+    dqkv = torch.empty_like(qkv)
+    dbias = partial = None
+    if bias is not None:
+        f32 = dict(dtype=torch.float32, device=qkv.device)
+        dbias = torch.empty((nheads, L, L), **f32)
+        partial = torch.empty((nw * -(-b // per_block), nheads, L, L), **f32)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = _function(KERNEL_BWD)(qkv.data_ptr(), scale.data_ptr(), _ptr(bias), dout.data_ptr(),
+                                dqkv.data_ptr(), _ptr(dbias), _ptr(partial),
+                                _DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block,
+                                stream)
+    _raise_on(err, KERNEL_BWD)
+    return dqkv, dbias
+
+
+def window_attention_global_bwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: torch.Tensor,
+                                     bias: torch.Tensor, dout: torch.Tensor, ws: int,
+                                     nheads: int
+                                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the Hopper global-query backward kernel and its reduction
+    (arguments and results as the plain version; ``qg`` in kv's dtype)."""
+    c = _check_args(KERNEL_GLOBAL_BWD, kv, 2, scale, bias, ws, nheads)
+    b, hp, wp, _ = kv.shape
+    L = ws * ws
+    _check(qg, "q_global", (b, L, c), kv.dtype, kv.device)
+    _check(dout, "dout", (b, hp, wp, c), kv.dtype, kv.device)
+    _check_aligned(qg, "q_global")
+    _check_aligned(dout, "dout")
+    # one block per head and slice of the images, looping over their windows
+    # (dqg is summed inside the block): about four blocks per SM where the
+    # batch allows, e.g. 8 heads x 64 slices of 2 images at GCViT's stage 3
+    per_block = _images_per_block(b, nheads, kv.device)
+    f32 = dict(dtype=torch.float32, device=kv.device)
+    dkv = torch.empty_like(kv)
+    dqg = torch.empty((b, L, c), **f32)
+    dbias = torch.empty((nheads, L, L), **f32)
+    partial = torch.empty((-(-b // per_block), nheads, L, L), **f32)
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    err = _function(KERNEL_GLOBAL_BWD)(
+        kv.data_ptr(), qg.data_ptr(), scale.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+        dkv.data_ptr(), dqg.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
+        _DTYPE_CODE[kv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
+    _raise_on(err, KERNEL_GLOBAL_BWD)
+    return dkv, dqg, dbias
+
+
+# ---------------------------------------------------------------------------
+# dispatch and autograd
+# ---------------------------------------------------------------------------
+def _on_cuda(t: torch.Tensor, op: str) -> bool:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{op} runs on CUDA or the CPU, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def _forward(qkv, scale, bias, ws: int, nheads: int) -> torch.Tensor:
+    if _on_cuda(qkv, "fused_window_attention"):
+        return window_attention_fwd_cuda(qkv, scale, bias, ws, nheads)
+    LAUNCHES[PLAIN] += 1
+    return window_attention_fwd_plain(qkv, scale, bias, ws, nheads)
+
+
+def _forward_global(kv, qg, scale, bias, ws: int, nheads: int) -> torch.Tensor:
+    if _on_cuda(kv, "fused_window_attention_global"):
+        return window_attention_global_fwd_cuda(kv, qg, scale, bias, ws, nheads)
+    LAUNCHES[PLAIN_GLOBAL] += 1
+    return window_attention_global_fwd_plain(kv, qg, scale, bias, ws, nheads)
+
+
+def _cast_dout(dout: torch.Tensor, like: torch.Tensor, kernel: str) -> torch.Tensor:
+    if dout.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{kernel} takes a float32 or bfloat16 dout, got {dout.dtype}")
+    # proj's backward may hand over a strided or f32 gradient
+    return dout.to(like.dtype).contiguous()
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """``(qkv, scale, bias, ws, nheads) -> out`` with the hand-written
+    backward: gradients for ``qkv`` and ``bias``, none for ``scale``. Only
+    the inputs are saved; the backward recomputes the attention weights."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, qkv, scale, bias, ws: int, nheads: int):
+        ctx.save_for_backward(qkv, scale, bias)
+        ctx.ws, ctx.nheads = ws, nheads
+        return _forward(qkv, scale, bias, ws, nheads)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout):
+        qkv, scale, bias = ctx.saved_tensors
+        dout = _cast_dout(dout, qkv, KERNEL_BWD)
+        if qkv.device.type == "cuda":
+            dqkv, dbias = window_attention_bwd_cuda(qkv, scale, bias, dout, ctx.ws, ctx.nheads)
+        else:
+            LAUNCHES[PLAIN_BWD] += 1
+            dqkv, dbias = window_attention_bwd_plain(qkv, scale, bias, dout, ctx.ws, ctx.nheads)
+        needs = ctx.needs_input_grad
+        return (dqkv if needs[0] else None, None,
+                dbias if bias is not None and needs[2] else None, None, None)
+
+
+class WindowAttentionGlobalFunction(torch.autograd.Function):
+    """``(kv, qg, scale, bias, ws, nheads) -> out`` with the hand-written
+    backward: gradients for ``kv``, ``qg`` (in qg's dtype) and ``bias``, none
+    for ``scale``. ``qg`` arrives in kv's dtype."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, kv, qg, scale, bias, ws: int, nheads: int):
+        ctx.save_for_backward(kv, qg, scale, bias)
+        ctx.ws, ctx.nheads = ws, nheads
+        return _forward_global(kv, qg, scale, bias, ws, nheads)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout):
+        kv, qg, scale, bias = ctx.saved_tensors
+        dout = _cast_dout(dout, kv, KERNEL_GLOBAL_BWD)
+        if kv.device.type == "cuda":
+            dkv, dqg, dbias = window_attention_global_bwd_cuda(kv, qg, scale, bias, dout,
+                                                               ctx.ws, ctx.nheads)
+        else:
+            LAUNCHES[PLAIN_GLOBAL_BWD] += 1
+            dkv, dqg, dbias = window_attention_global_bwd_plain(kv, qg, scale, bias, dout,
+                                                                ctx.ws, ctx.nheads)
+        needs = ctx.needs_input_grad
+        return (dkv if needs[0] else None, dqg.to(qg.dtype) if needs[1] else None, None,
+                dbias if needs[3] else None, None, None)
+
+
+def _needs_graph(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def fused_window_attention(qkv: torch.Tensor, scale: torch.Tensor,
+                           bias: Optional[torch.Tensor], ws: int, nheads: int) -> torch.Tensor:
+    """Fused plain window attention on the spatial layout.
+
+    Args:
+        qkv: (B, Hp, Wp, 3C) fused projection; Hp, Wp multiples of ``ws``.
+        scale: (H,) per-head logit multipliers (typically head_dim**-0.5).
+        bias: (H, L, L) additive bias (GCViT's learned relative position
+            bias; its gradient flows), or None (DaViT).
+
+    Returns:
+        (B, Hp, Wp, C), same dtype as ``qkv``. Differentiable in ``qkv`` and
+        ``bias``.
+    """
+    scale = scale.detach().float().contiguous()
+    bias = None if bias is None else bias.float().contiguous()
+    if _needs_graph(qkv, bias):
+        return WindowAttentionFunction.apply(qkv, scale, bias, ws, nheads)
+    # no graph to build (eval under inference_mode): nothing is saved
+    return _forward(qkv, scale, bias, ws, nheads)
+
+
+def fused_window_attention_global(kv: torch.Tensor, q_global: torch.Tensor,
+                                  scale: torch.Tensor, bias: torch.Tensor, ws: int,
+                                  nheads: int) -> torch.Tensor:
+    """Fused GCViT global-query window attention on the spatial layout: every
+    window of an image attends with that image's shared queries, which are
+    never repeated per window in memory.
+
+    Args:
+        kv: (B, Hp, Wp, 2C) key/value projection; Hp, Wp multiples of ``ws``.
+        q_global: (B, L, C) shared global queries per image (cast to kv's dtype).
+        scale: (H,) per-head logit multipliers.
+        bias: (H, L, L) learned relative position bias.
+
+    Returns:
+        (B, Hp, Wp, C), same dtype as ``kv``. Differentiable in ``kv``,
+        ``q_global`` and ``bias``.
+    """
+    scale = scale.detach().float().contiguous()
+    bias = bias.float().contiguous()
+    qg = q_global.to(kv.dtype).contiguous()  # autograd casts its gradient back
+    if _needs_graph(kv, qg, bias):
+        return WindowAttentionGlobalFunction.apply(kv, qg, scale, bias, ws, nheads)
+    return _forward_global(kv, qg, scale, bias, ws, nheads)
+
+
+def window_attention_spatial(proj: torch.Tensor, scale: torch.Tensor,
+                             bias: Optional[torch.Tensor], ws: int, nheads: int,
+                             q_global: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain window attention on the (B, Hp, Wp, .) spatial layout, the one
+    entry of DaViT spatial blocks and GCViT local and global blocks.
+
+    ``proj`` is the fused qkv projection (3C channels) when ``q_global`` is
+    None, else the kv projection (2C) with ``q_global`` the image's (B, L, C)
+    shared queries."""
+    if q_global is not None:
+        if bias is None:
+            raise ValueError("global-query window attention needs its bias")
+        return fused_window_attention_global(proj, q_global, scale, bias, ws, nheads)
+    return fused_window_attention(proj, scale, bias, ws, nheads)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` functions and is compiled by
 ``nvcc`` for ``sm_90a`` (Hopper) at first use, then loaded with ``ctypes``.
 The library lands in ``build/torchok_tpu_torch/`` beside the package (git
-ignores it) under a name that carries the source's hash, so an edited
-source is rebuilt and an unchanged one is loaded as is. A failed build
-raises with the compiler's output.
+ignores it) under a name that carries the hash of the source and of the
+headers (``csrc/*.cuh``) it may include, so an edited source is rebuilt and
+an unchanged one is loaded as is. A failed build raises with the compiler's
+output.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torchok_tpu_torch"
@@ -40,8 +41,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -77,6 +80,15 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LOADED[name] = lib
         return lib
+
+
+def load_function(name: str, argtypes: Sequence) -> Callable[..., int]:
+    """The ``extern "C"`` entry ``name`` of ``csrc/<name>.cu`` (built at first
+    use), taking ``argtypes`` and returning the launch's CUDA error code."""
+    fn = getattr(load_library(name), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def load_libraries(names: Sequence[str]) -> None:

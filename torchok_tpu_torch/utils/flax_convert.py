@@ -1,17 +1,25 @@
 """Flax variables -> PyTorch state_dict for the port's modules (numpy only).
 
-The inverse of ``torchok_tpu.utils.torch_convert`` (``map_swin`` and the
-layout adaptation in ``fit_tensor``): it carries a ``torchok_tpu`` model's
-parameters into ``torchok_tpu_torch``, whose modules use timm key names.
+The inverse of ``torchok_tpu.utils.torch_convert`` (``map_swin``,
+``map_gcvit``, ``map_davit`` and the layout adaptation in ``fit_tensor``): it
+carries a ``torchok_tpu`` model's parameters into ``torchok_tpu_torch``, whose
+modules use the timm or reference key names.
 
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 * Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
 * LayerNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
 * family-specific path renames (SwinV2: ``layers_0_blocks_1`` ->
   ``layers.0.blocks.1``, ``cpb_mlp_0``/``cpb_mlp_1`` -> ``cpb_mlp.0``/``.2``,
-  ``patch_embed``/``patch_norm`` -> ``patch_embed.proj``/``patch_embed.norm``).
+  ``patch_embed``/``patch_norm`` -> ``patch_embed.proj``/``patch_embed.norm``;
+  GCViT: ``stages_1`` -> ``stages.1``, ``blocks_2`` -> ``blocks.2``,
+  ``global_block/conv1`` -> ``global_block.blocks.conv1``; DaViT:
+  ``stage_2_spatial_0`` -> ``main_blocks.2.0.0`` (channel: ``.1``),
+  ``patch_embed_1``/``patch_norm_1`` -> ``patch_embeds.1.proj``/``.norm``,
+  ``cpe1``/``cpe2`` -> ``cpe.0``/``cpe.1``). Depthwise and 1x1 conv kernels
+  take the same HWIO -> OIHW rule; ``relative_position_bias_table`` and
+  ``gamma`` carry over as they are.
 
-Only the ``params`` collection carries over; the SwinV2 family has no
+Only the ``params`` collection carries over; these families have no
 ``batch_stats``. ``task_name_map`` gives the same correspondence by name
 (port key -> Flax path) and ``state_dict_to_task_flax`` carries a port
 ``state_dict`` back into the Flax tree, so parameters and gradients can be
@@ -47,12 +55,40 @@ def _swin_path(parts: List[str]) -> List[str]:
     return out
 
 
+def _gcvit_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for prev, p in zip([""] + parts, parts):
+        if (m := re.fullmatch(r"(stages|blocks)_(\d+)", p)):
+            out += [m[1], m[2]]
+        elif prev == "global_block" and re.fullmatch(r"conv\d+", p):
+            out += ["blocks", p]
+        else:
+            out.append(p)
+    return out
+
+
+def _davit_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for p in parts:
+        if (m := re.fullmatch(r"stage_(\d+)_(spatial|channel)_(\d+)", p)):
+            out += ["main_blocks", m[1], m[3], "0" if m[2] == "spatial" else "1"]
+        elif (m := re.fullmatch(r"patch_(embed|norm)_(\d+)", p)):
+            out += ["patch_embeds", m[2], "proj" if m[1] == "embed" else "norm"]
+        elif (m := re.fullmatch(r"cpe(\d+)", p)):
+            out += ["cpe", str(int(m[1]) - 1)]
+        else:
+            out.append(p)
+    return out
+
+
 def _plain_path(parts: List[str]) -> List[str]:
     return list(parts)
 
 
 _FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
     (r"^swinv2", _swin_path),
+    (r"^gcvit", _gcvit_path),
+    (r"^davit", _davit_path),
 ]
 
 
