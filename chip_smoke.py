@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
-2. Builds the port's six CUDA kernels from ``torchok_tpu_torch/csrc`` with
+2. Builds the port's nine CUDA kernels from ``torchok_tpu_torch/csrc`` with
    nvcc, one compiler per source, side by side, and prints each kernel's
    registers and spills.
 3. Holds each kernel against its plain PyTorch version on the card and times
@@ -22,9 +22,29 @@
      (window 7, no bias); K4/K5 (global-query attention, forward/backward)
      at gcvit_tiny's four; batch 8 in f32 and batch 128 in bf16, the same
      tolerances, backward kernels bit-equal between two launches.
-4. Drives the slices through ``torchok_tpu_torch.__main__.run`` with the
+   * K6 (cosine attention on pre-partitioned head-major windows) at
+     swinv2_tiny's four window shapes, masked and unmasked: f32 at batch 8
+     <= 1e-4, bf16 at batch 128 <= 2e-2 (one bf16 ulp of the largest output).
+   * K7 (1x1-conv GEMM with the BatchNorm prologue and statistics) at
+     ResNet-50's four stages in both directions at batch 256 in bf16 and
+     batch 8 in f32, all four flag combinations at stage 4, one ragged M: y
+     within 1e-4 (f32) or 2^-7 (bf16: one ulp) of the largest |y|; s1/s2
+     within rtol 1e-4 plus an atol that grows with sqrt(M) (ulp flips and
+     summation order are a random walk over the rows); bit-equal twice.
+   * K8 (3x3 conv as an implicit GEMM) at ResNet-50's four 3x3 shapes at
+     batch 256 in bf16, batch 8 in f32 and one odd size, same y tolerances;
+     its library call is ``F.conv2d`` on channels-last bf16.
+4. Drives the three op paths at full width, counters zeroed before and read
+   after: ``window_attention(..., use_kernel=True)`` forward and backward
+   through the hybrid at swinv2_tiny's stage-1 shape (against the einsum
+   formulation); the 8-layer stage-4 bottleneck chain of
+   ``tools/probe_torch_conv_bn.py`` forward and backward (8 K7 launches, no
+   plain call, loss and gradients against the unfused chain); ``conv3x3_gemm``
+   over the four shapes (against ``F.conv2d``).
+5. Drives the slices through ``torchok_tpu_torch.__main__.run`` with the
    dicts below (each equal to its ``configs/classification_*_synthetic*.yaml``),
-   at full width, batch 128, bf16 autocast, random weights from the seed. The
+   at full width, batch 128 (ResNet-50: 256), bf16 autocast, random weights
+   from the seed. The
    launch counters are zeroed just before each run and read just after; the
    counts must be exactly the expected kernel launches and no plain call:
    * inference (``SLICE_CONFIG`` swinv2_tiny 256x256, ``GCVIT_SLICE_CONFIG``
@@ -38,11 +58,19 @@
      17 K3a + 14 K4 + 17 K3b + 14 K5, or 6 K3a + 6 K3b (davit_t); every loss
      finite and the last below the first; the validation metrics reported;
      every parameter finite and the named ones moved;
+   * ResNet-50 (``RESNET_SLICE_CONFIG``, ``RESNET_TRAIN_CONFIG``, 224x224,
+     batch 256) in modes test, predict and train the same way. The JAX ResNet
+     reaches no Pallas kernel, so the port's reaches no hand-written kernel:
+     every launch counter must stay at 0 through these runs. Its f32 logits
+     on the card (cuDNN and matmul TF32 off) are held to 1e-3 of the CPU run's
+     as the others are;
    * one f32 forward + backward of swinv2_tiny and of gcvit_tiny on two images
      on the card (kernels) against the CPU (plain versions), over all
      parameter gradients, within 1e-3 of the largest gradient.
-5. Prints ``{"kernels": [...]}`` (K1, K2, K3a, K3b, K4, K5; the K3 to K5 times
-   are summed over one gcvit_tiny forward or backward), the card line, and last
+6. Prints ``{"kernels": [...]}`` (K1 to K8; the K3 to K5 times are summed
+   over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
+   K7's over the chain's forward, K8's over its four shapes), the card line,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. Without a CUDA
@@ -63,9 +91,9 @@ _METRIC = {"params": {"task": "multiclass", "num_classes": 1000},
            "mapping": {"preds": "prediction", "target": "target"}}
 
 
-def _synthetic(num_samples, shuffle, drop_last, size=256, **extra):
+def _synthetic(num_samples, shuffle, drop_last, size=256, batch=128, **extra):
     return [{
-        "dataloader": {"batch_size": 128, "num_workers": 2, "drop_last": drop_last,
+        "dataloader": {"batch_size": batch, "num_workers": 2, "drop_last": drop_last,
                        "shuffle": shuffle},
         "dataset": {
             "name": "SyntheticClassificationDataset",
@@ -90,9 +118,9 @@ def _task(backbone, size, **backbone_params):
     }
 
 
-def slice_config(backbone, size, **backbone_params):
+def slice_config(backbone, size, batch=128, **backbone_params):
     """The inference recipe (configs/classification_<model>_synthetic.yaml)."""
-    data = _synthetic(384, False, False, size)
+    data = _synthetic(3 * batch, False, False, size, batch)
     return {
         "task": _task(backbone, size, **backbone_params),
         "data": {"TEST": data, "PREDICT": data},
@@ -103,15 +131,15 @@ def slice_config(backbone, size, **backbone_params):
     }
 
 
-def train_config(backbone, size, **backbone_params):
+def train_config(backbone, size, batch=128, **backbone_params):
     """The train recipe (configs/classification_<model>_synthetic_train.yaml)."""
     return {
         "task": _task(backbone, size, **backbone_params),
         "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
                                    "mapping": {"input": "prediction", "target": "target"}}]},
         "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
-        "data": {"TRAIN": _synthetic(1280, True, True, size),
-                 "VALID": _synthetic(256, False, False, size, seed=1)},
+        "data": {"TRAIN": _synthetic(10 * batch, True, True, size, batch),
+                 "VALID": _synthetic(2 * batch, False, False, size, batch, seed=1)},
         "trainer": {"accelerator": "gpu", "precision": 16, "max_epochs": 2},
         "seed_params": {"seed": 42},
         "metrics": [{"name": "Accuracy", **_METRIC}],
@@ -123,6 +151,8 @@ TRAIN_CONFIG = train_config("swinv2_tiny_window8_256", 256)
 GCVIT_SLICE_CONFIG = slice_config("gcvit_tiny", 224, img_size=224)
 GCVIT_TRAIN_CONFIG = train_config("gcvit_tiny", 224, img_size=224)
 DAVIT_TRAIN_CONFIG = train_config("davit_t", 224)
+RESNET_SLICE_CONFIG = slice_config("resnet50", 224, batch=256)
+RESNET_TRAIN_CONFIG = train_config("resnet50", 224, batch=256)
 TRAIN_STEPS = 10
 BATCHES = 3
 BLOCKS = (2, 2, 6, 2)  # SwinBlocks per stage of swinv2_tiny
@@ -624,8 +654,318 @@ def check_k5(timing=True):
     return check_dot("K5", gcvit_cases(6), timing)
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def mw_inputs(b_, heads, n_mask, dtype, seed):
+    """(q, k, v, logit_scale, bias, mask) on the card for K6: L 64, D 32;
+    ``n_mask`` window types (0: no mask)."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dev = torch.device("cuda", 0)
+    q, k, v = ((0.5 * torch.randn((b_, heads, 64, 32), generator=g, device=dev)).to(dtype)
+               for _ in range(3))
+    logit_scale = math.log(10.0) + 0.5 * torch.randn((heads,), generator=g, device=dev)
+    bias = 16 * torch.sigmoid(torch.randn((heads, 64, 64), generator=g, device=dev))
+    mask = None
+    if n_mask:
+        mask = -100.0 * (torch.rand((n_mask, 64, 64), generator=g, device=dev) < 0.3).float()
+    return q, k, v, logit_scale, bias, mask
+
+
+def mw_sdpa_inputs(q, k, v, logit_scale, bias, mask):
+    """The closest single library call on what it needs prepared: q and k
+    already normalised, q already scaled, bias (+ mask) as one additive
+    ``attn_mask``; it leaves out the normalisation, the temperature and the
+    assembly of the mask. The (window type, head) pairs ride the head axis so
+    the mask broadcasts over the images."""
+    import torch
+    import torch.nn.functional as F
+    b_, heads, L, d = q.shape
+    nw = 1 if mask is None else mask.shape[0]
+    scale = torch.exp(torch.clamp(logit_scale, max=math.log(100.0)))
+    qn = F.normalize(q.float(), dim=-1) * scale.view(1, heads, 1, 1)
+    kn = F.normalize(k.float(), dim=-1)
+    attn = bias[None] if mask is None else bias[None] + mask[:, None]
+    attn = attn.reshape(1, nw * heads, L, L).to(q.dtype).contiguous()
+    qn, kn, vv = (t.to(q.dtype).reshape(b_ // nw, nw * heads, L, d).contiguous()
+                  for t in (qn, kn, v))
+    return qn, kn, vv, attn
+
+
+def mw_cost(b_, heads, n_mask, itemsize):
+    L, d = 64, 32
+    return (4 * b_ * heads * L * d * itemsize + 4 * (heads + heads * L * L + n_mask * L * L),
+            4 * b_ * heads * L * L * d)
+
+
+def check_k6():
+    """K6 against its plain version at swinv2_tiny's window shapes, masked
+    (compact, one row per window type) and unmasked; the record sums the 12
+    blocks of one forward at batch 128."""
+    import torch
+    import torch.nn.functional as F
+    from torchok_tpu_torch.ops import window_attention as wa
+    failures = []
+    worst_bf16 = 0.0
+    total = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0}
+    for dtype, batch in ((torch.float32, CHECK_BATCH), (torch.bfloat16, 128)):
+        name = dtype_name(dtype)
+        for stage, (hp, wp, c, heads), masked, n in shape_cases(batch):
+            nw = (hp // 8) * (wp // 8)
+            args = mw_inputs(batch * nw, heads, nw if masked else 0, dtype, 30 + stage)
+            got = wa.window_attention_mw_cuda(*args)
+            ref = wa.window_attention_mw_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all().item()) and err <= TOLERANCE[name]
+            del got, ref
+            iters = TIMING_ITERS if batch > CHECK_BATCH else TIMING_ITERS_SMALL
+            k_ms = median_ms(lambda: wa.window_attention_mw_cuda(*args), iters)
+            p_ms = median_ms(lambda: wa.window_attention_mw_plain(*args), iters)
+            line = (f"K6 {name} B{batch} stage{stage} q=({batch * nw},{heads},64,32) "
+                    f"mask={masked} x{n} blocks: max_abs_err={err:.3e} "
+                    f"(tol {TOLERANCE[name]:g}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+            if batch == 128:
+                worst_bf16 = max(worst_bf16, err)
+                qn, kn, vv, attn = mw_sdpa_inputs(*args)
+                lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                    qn, kn, vv, attn_mask=attn, scale=1.0), iters)
+                del qn, kn, vv, attn
+                nbytes, flops = mw_cost(batch * nw, heads, nw if masked else 0, 2)
+                b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
+                line += f" sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f}"
+                for key, value in (("k", k_ms), ("p", p_ms), ("lib", lib_ms), ("bytes", nbytes),
+                                   ("flops", flops)):
+                    total[key] += n * value
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+            del args
+    if failures:
+        fail("K6 disagrees with its plain version: " + "; ".join(failures))
+    total_bound, bound_by = bound_ms(total["bytes"], total["flops"], "bfloat16")
+    print(f"K6 bf16 bs128 per forward (12 blocks): kernel_ms={total['k']:.4f} "
+          f"plain_ms={total['p']:.4f} sdpa_ms={total['lib']:.4f} bound_ms={total_bound:.4f} "
+          f"({bound_by}: {total['bytes'] / 1e9:.3f} GB, {total['flops'] / 1e9:.1f} GFLOP)",
+          flush=True)
+    return {"name": wa.KERNEL, "route": "cuda",
+            "source": "torchok_tpu_torch/csrc/window_attention_mw_fwd.cu",
+            "replaces": "torchok_tpu/ops/window_attention.py:88",
+            "launches": 0, "max_abs_err": worst_bf16, "ms": total["k"], "plain_ms": total["p"],
+            "bound_ms": total_bound, "bound_by": bound_by, "library_ms": total["lib"]}
+
+
+# ResNet-50's bottleneck 1x1 convs: (stage, pixels per image, wide, narrow)
+BN_STAGES = ((2, 56 * 56, 256, 64), (3, 28 * 28, 512, 128), (4, 14 * 14, 1024, 256),
+             (5, 7 * 7, 2048, 512))
+RESNET_BATCH = 256
+CHAIN_STAGE, CHAIN_LAYERS = 4, 8
+# y: f32 sums in another order than the library's, or one bf16 ulp where the
+# two f32 sums fall on either side of a rounding boundary, as a fraction of
+# the largest |y|
+GEMM_TOLERANCE = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+
+
+def bn_inputs(m, k, n, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dev = torch.device("cuda", 0)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=dev) * (2.0 / k) ** 0.5).to(dtype)
+    scale = 0.5 + torch.rand((k,), generator=g, device=dev)
+    bias = 0.2 * torch.randn((k,), generator=g, device=dev)
+    return x, w, scale, bias
+
+
+def bn_library(x, w, scale, bias, relu_in, with_affine):
+    """The unfused chain of library calls: elementwise affine + ReLU, one
+    ``torch.matmul``, two column reductions."""
+    import torch
+    a = x.float()
+    if with_affine:
+        a = a * scale + bias
+    if relu_in:
+        a = torch.relu(a)
+    y = torch.matmul(a.to(x.dtype), w)
+    yf = y.float()
+    return y, yf.sum(0), (yf * yf).sum(0)
+
+
+def bn_cost(m, k, n, itemsize):
+    return itemsize * (m * k + k * n + m * n) + 4 * (2 * k + 2 * n), 2 * m * k * n
+
+
+def check_k7():
+    """K7 against its plain version; the record sums the eight launches of
+    the stage-4 chain's forward (four 1024 -> 256, four 256 -> 1024)."""
+    import torch
+    from torchok_tpu_torch.ops import conv_bn
+    failures = []
+    worst_bf16 = 0.0
+    record = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0}
+
+    def one(label, m, k, n, dtype, flags, seed, timing):
+        nonlocal worst_bf16
+        name = dtype_name(dtype)
+        args = bn_inputs(m, k, n, dtype, seed)
+        got = conv_bn.matmul_bn_cuda(*args, *flags)
+        again = conv_bn.matmul_bn_cuda(*args, *flags)
+        ref = conv_bn.matmul_bn_plain(*args, *flags)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        top = ref[0].float().abs().max().item()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        ok = same and all(bool(torch.isfinite(t).all().item()) for t in got)
+        ok = ok and err <= GEMM_TOLERANCE[name] * top
+        # the JAX package's test holds s1/s2 to rtol 1e-4, atol 1e-2 at M <= 256;
+        # ulp flips of y and the other summation order are a random walk over
+        # the rows, so the atol grows with sqrt(M) (and with |y|)
+        atol = 1e-2 * max(1.0, top) * max(1.0, (m / 256) ** 0.5)
+        parts = [f"y err={err:.3e} (tol {GEMM_TOLERANCE[name]:g} x max|y| {top:.3e})"]
+        for key, g_, r_ in zip(("s1", "s2"), got[1:], ref[1:]):
+            excess = ((g_ - r_).abs() - 1e-4 * r_.abs()).max().item()
+            ok = ok and excess <= atol
+            parts.append(f"{key} err={(g_ - r_).abs().max().item():.3e} of max "
+                         f"{r_.abs().max().item():.3e} (rtol 1e-4, atol {atol:.3g})")
+        if name == "bfloat16":
+            worst_bf16 = max(worst_bf16, err)
+        del got, again, ref
+        line = (f"K7 {name} {label} x=({m},{k}) w=({k},{n}) relu_in={flags[0]} "
+                f"with_affine={flags[1]}: " + ", ".join(parts) + f", bit-equal twice={same}")
+        times = None
+        if timing:
+            k_ms = median_ms(lambda: conv_bn.matmul_bn_cuda(*args, *flags))
+            p_ms = median_ms(lambda: conv_bn.matmul_bn_plain(*args, *flags))
+            lib_ms = median_ms(lambda: bn_library(*args, *flags))
+            nbytes, flops = bn_cost(m, k, n, args[0].element_size())
+            b_ms, by = bound_ms(nbytes, flops, name)
+            line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} unfused_ms={lib_ms:.4f} "
+                     f"bound_ms={b_ms:.4f} ({by})")
+            times = (k_ms, p_ms, lib_ms, nbytes, flops)
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+        return times
+
+    for stage, pixels, wide, narrow in BN_STAGES:
+        for k, n in ((wide, narrow), (narrow, wide)):
+            one(f"B{CHECK_BATCH} stage{stage}", CHECK_BATCH * pixels, k, n, torch.float32,
+                (True, True), stage, False)
+            times = one(f"bs{RESNET_BATCH} stage{stage}", RESNET_BATCH * pixels, k, n,
+                        torch.bfloat16, (True, True), 10 + stage, True)
+            if stage == CHAIN_STAGE:
+                for key, value in zip(("k", "p", "lib", "bytes", "flops"), times):
+                    record[key] += CHAIN_LAYERS // 2 * value
+    _, pixels, wide, narrow = BN_STAGES[CHAIN_STAGE - 2]
+    for dtype, batch in ((torch.float32, CHECK_BATCH), (torch.bfloat16, RESNET_BATCH)):
+        for flags in ((False, False), (True, False), (False, True)):
+            one(f"flags stage{CHAIN_STAGE}", batch * pixels, wide, narrow, dtype, flags, 20, False)
+        one("ragged M", batch * pixels - 59, wide, narrow, dtype, (True, True), 21, False)
+    if failures:
+        fail("K7 disagrees with its plain version or with itself: " + "; ".join(failures))
+    total_bound, bound_by = bound_ms(record["bytes"], record["flops"], "bfloat16")
+    print(f"K7 bf16 bs{RESNET_BATCH} per forward of the stage-{CHAIN_STAGE} chain "
+          f"({CHAIN_LAYERS} launches): kernel_ms={record['k']:.4f} plain_ms={record['p']:.4f} "
+          f"unfused_ms={record['lib']:.4f} bound_ms={total_bound:.4f} ({bound_by}: "
+          f"{record['bytes'] / 1e9:.3f} GB, {record['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    return {"name": conv_bn.KERNEL, "route": "cuda",
+            "source": "torchok_tpu_torch/csrc/matmul_bn_fwd.cu",
+            "replaces": "torchok_tpu/ops/conv_bn.py:45",
+            "launches": 0, "max_abs_err": worst_bf16, "ms": record["k"], "plain_ms": record["p"],
+            "bound_ms": total_bound, "bound_by": bound_by, "library_ms": record["lib"]}
+
+
+# ResNet-50's bottleneck 3x3 convs: (H = W, Cin = Cout)
+CONV_SHAPES = ((56, 64), (28, 128), (14, 256), (7, 512))
+
+
+def conv_inputs(n, h, w_, cin, cout, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dev = torch.device("cuda", 0)
+    x = (0.5 * torch.randn((n, h, w_, cin), generator=g, device=dev)).to(dtype)
+    w = (0.05 * torch.randn((3, 3, cin, cout), generator=g, device=dev)).to(dtype)
+    return x, w
+
+
+def conv_library_inputs(x, w):
+    """NCHW-shaped views of the NHWC data (channels-last memory format) and
+    OIHW weights in the same format, for one ``F.conv2d`` call."""
+    import torch
+    return (x.permute(0, 3, 1, 2),
+            w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last))
+
+
+def conv_cost(n, h, w_, cin, cout, itemsize):
+    return (itemsize * (n * h * w_ * (cin + cout) + 9 * cin * cout),
+            2 * n * h * w_ * 9 * cin * cout)
+
+
+def check_k8():
+    """K8 against its plain version; the record sums the four ResNet-50
+    shapes at batch 256."""
+    import torch
+    import torch.nn.functional as F
+    from torchok_tpu_torch.ops import conv_gemm
+    failures = []
+    worst_bf16 = 0.0
+    record = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0}
+    cases = [(f"B{CHECK_BATCH}", (CHECK_BATCH, hw, hw, c, c), torch.float32, False)
+             for hw, c in CONV_SHAPES]
+    cases += [("odd", (5, 9, 11, 24, 40), torch.float32, False),
+              ("odd", (5, 9, 11, 24, 40), torch.bfloat16, False)]
+    cases += [(f"bs{RESNET_BATCH}", (RESNET_BATCH, hw, hw, c, c), torch.bfloat16, True)
+              for hw, c in CONV_SHAPES]
+    for idx, (label, shape, dtype, counts) in enumerate(cases):
+        name = dtype_name(dtype)
+        x, w = conv_inputs(*shape, dtype, 40 + idx)
+        got = conv_gemm.conv3x3_gemm_cuda(x, w)
+        ref = conv_gemm.conv3x3_gemm_plain(x, w)
+        torch.cuda.synchronize()
+        top = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all().item()) and err <= GEMM_TOLERANCE[name] * top
+        del got, ref
+        line = (f"K8 {name} {label} x={shape[:4]} w=(3,3,{shape[3]},{shape[4]}): "
+                f"max_abs_err={err:.3e} (tol {GEMM_TOLERANCE[name]:g} x max|y| {top:.3e})")
+        if counts:
+            worst_bf16 = max(worst_bf16, err)
+            xl, wl = conv_library_inputs(x, w)
+            k_ms = median_ms(lambda: conv_gemm.conv3x3_gemm_cuda(x, w))
+            p_ms = median_ms(lambda: conv_gemm.conv3x3_gemm_plain(x, w), TIMING_ITERS_SMALL)
+            lib_ms = median_ms(lambda: F.conv2d(xl, wl, padding=1))
+            nbytes, flops = conv_cost(*shape, 2)
+            b_ms, by = bound_ms(nbytes, flops, name)
+            line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} conv2d_ms={lib_ms:.4f} "
+                     f"bound_ms={b_ms:.4f} ({by})")
+            for key, value in zip(("k", "p", "lib", "bytes", "flops"),
+                                  (k_ms, p_ms, lib_ms, nbytes, flops)):
+                record[key] += value
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+        del x, w
+    if failures:
+        fail("K8 disagrees with its plain version: " + "; ".join(failures))
+    total_bound, bound_by = bound_ms(record["bytes"], record["flops"], "bfloat16")
+    print(f"K8 bf16 bs{RESNET_BATCH} over the four shapes: kernel_ms={record['k']:.4f} "
+          f"plain_ms={record['p']:.4f} conv2d_ms={record['lib']:.4f} bound_ms={total_bound:.4f} "
+          f"({bound_by}: {record['bytes'] / 1e9:.3f} GB, {record['flops'] / 1e9:.1f} GFLOP)",
+          flush=True)
+    return {"name": conv_gemm.KERNEL, "route": "cuda",
+            "source": "torchok_tpu_torch/csrc/conv3x3_gemm.cu",
+            "replaces": "tools/probe_r50_conv_gemm.py:46",
+            "launches": 0, "max_abs_err": worst_bf16, "ms": record["k"], "plain_ms": record["p"],
+            "bound_ms": total_bound, "bound_by": bound_by, "library_ms": record["lib"]}
+
+
 def launch_counts():
-    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
+    from torchok_tpu_torch.ops.common import LAUNCHES
     return {k: v for k, v in LAUNCHES.items() if v}
 
 
@@ -636,13 +976,140 @@ def require_launches(label, counts, want):
         fail(f"{label}: expected launches {want} and no plain call, got {counts}")
 
 
-def run_slice(label, config, per_forward, records, image_size):
+def load_tool(name):
+    """A script of ``tools/`` as a module (``tools`` is not a package)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_op_paths(records):
+    """The public ops that reach K6, K7 and K8, at full width: their entry
+    points in the JAX package are the ops themselves and two probes."""
+    import torch
+    import torch.nn.functional as F
+    from torchok_tpu_torch.ops import conv_bn, conv_gemm
+    from torchok_tpu_torch.ops import window_attention as wa
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    # K6: window_attention with the kernel on, forward and backward through
+    # the hybrid, at swinv2_tiny's stage-1 shape (64 window types per image),
+    # against the einsum formulation (its own forward and backward). f32 at
+    # batch 8: the kernel does not round the unit vectors and normalises with
+    # rsqrt(sum + eps), hence 2e-4 as the JAX package holds it; gradients
+    # within 1e-3 of the largest. bf16 at batch 128: within two bf16 ulps of
+    # the largest value (the einsum formulation rounds qn, kn and the weights).
+    hp, wp, c, heads = STAGES[0]
+    nw = (hp // 8) * (wp // 8)
+    LAUNCHES.clear()
+    for dtype, batch, out_tol, grad_tol in ((torch.float32, CHECK_BATCH, 2e-4, 1e-3),
+                                            (torch.bfloat16, 128, 4e-2, 4e-2)):
+        q, k, v, logit_scale, bias, mask = mw_inputs(batch * nw, heads, nw, dtype, 50)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(51)
+        dout = torch.randn(q.shape, generator=g, device=q.device).to(dtype)
+        results = []
+        for use_kernel in (True, False):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v, logit_scale, bias)]
+            out = wa.window_attention(*leaves, mask, use_kernel)
+            grads = torch.autograd.grad(out, leaves, dout)
+            results.append((out.detach(), grads))
+        torch.cuda.synchronize()
+        (out_k, grads_k), (out_e, grads_e) = results
+        err = (out_k.float() - out_e.float()).abs().max().item()
+        parts = [f"out err={err:.3e} (tol {out_tol:g})"]
+        ok = err <= out_tol and bool(torch.isfinite(out_k).all().item())
+        for key, a, b in zip(("dq", "dk", "dv", "dlogit_scale", "dbias"), grads_k, grads_e):
+            gerr = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            ok = ok and gerr <= grad_tol * top
+            parts.append(f"{key} err={gerr:.3e} (tol {grad_tol:g} x {top:.3e})")
+        print(f"window_attention use_kernel {dtype_name(dtype)} q=({batch * nw},{heads},64,32) "
+              f"compact mask of {nw}: " + ", ".join(parts), flush=True)
+        if not ok:
+            fail("window_attention through the kernel differs from the einsum formulation")
+        del results, out_k, out_e, grads_k, grads_e, q, k, v, dout
+    counts = launch_counts()
+    require_launches("window_attention op path", counts, {wa.KERNEL: 2})
+    records[wa.KERNEL]["launches"] += counts[wa.KERNEL]
+
+    # K7: the probe's bottleneck chain, fused against unfused, forward and
+    # backward. Both chains round y to bf16 from f32 sums in different orders,
+    # and the unfused backward rounds each layer's input gradient to bf16
+    # where the fused one keeps f32: differences of a few bf16 ulps per layer
+    # over eight layers, hence 5e-2 of the largest gradient; the loss is a
+    # mean over 50,176 rows, held to 1e-2 relative.
+    probe = load_tool("probe_torch_conv_bn")
+    m, wide, narrow = probe.STAGES[CHAIN_STAGE]
+    device = torch.device("cuda", 0)
+    params = probe.make_params(0, wide, narrow, CHAIN_LAYERS, device)
+    x = probe.make_input(1, m, wide, device, torch.bfloat16)
+    LAUNCHES.clear()
+    result = probe.parity(params, x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"conv_bn chain stage {CHAIN_STAGE} M={m} {wide}<->{narrow} x{CHAIN_LAYERS} bf16: "
+          f"loss unfused={result['loss_unfused']:.6f} fused={result['loss_fused']:.6f}; "
+          "max grad err / max |grad|: "
+          + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in result["grad_rel_err"].items())
+          + f"; launches {counts}", flush=True)
+    require_launches("conv_bn chain", counts, {conv_bn.KERNEL: CHAIN_LAYERS})
+    records[conv_bn.KERNEL]["launches"] += counts[conv_bn.KERNEL]
+    losses = (result["loss_unfused"], result["loss_fused"])
+    if not all(math.isfinite(v_) for v_ in losses) \
+            or abs(losses[0] - losses[1]) > 1e-2 * max(abs(losses[0]), 1e-3):
+        fail(f"conv_bn chain: fused and unfused losses differ: {losses}")
+    if not all(v_ <= 5e-2 for v_ in result["grad_rel_err"].values()):
+        fail(f"conv_bn chain: fused and unfused gradients differ: {result['grad_rel_err']}")
+    sps_u = probe.steps_per_second(probe.loss_unfused, params, x, 5)
+    sps_f = probe.steps_per_second(probe.loss_fused, params, x, 5)
+    print(f"conv_bn chain fwd+bwd (a smoke reading, host clock around 5 steps): unfused "
+          f"{1e3 / sps_u:.3f} ms/step, fused {1e3 / sps_f:.3f} ms/step", flush=True)
+    del params, x
+
+    # K8: the op over the probe's four shapes against F.conv2d (cuDNN picks
+    # its own algorithm and summation order: 2e-2 of the largest output)
+    LAUNCHES.clear()
+    for idx, (hw, ch) in enumerate(CONV_SHAPES):
+        x, w = conv_inputs(RESNET_BATCH, hw, hw, ch, ch, torch.bfloat16, 60 + idx)
+        got = conv_gemm.conv3x3_gemm(x, w).float()
+        xl, wl = conv_library_inputs(x, w)
+        ref = F.conv2d(xl, wl, padding=1).permute(0, 2, 3, 1).float()
+        torch.cuda.synchronize()
+        rel = (got - ref).abs().max().item() / ref.abs().max().item()
+        print(f"conv3x3_gemm ({RESNET_BATCH},{hw},{hw},{ch}) against F.conv2d: max rel diff "
+              f"{rel:.3e} (tol 2e-2)", flush=True)
+        if not rel <= 2e-2:
+            fail(f"conv3x3_gemm differs from F.conv2d at {hw}x{hw}x{ch}: {rel:.3e}")
+        del x, w, got, ref, xl, wl
+    counts = launch_counts()
+    require_launches("conv3x3_gemm op path", counts, {conv_gemm.KERNEL: len(CONV_SHAPES)})
+    records[conv_gemm.KERNEL]["launches"] += counts[conv_gemm.KERNEL]
+
+
+def unzero_last_norms(model):
+    """Give every zero-initialised last norm of a ResNet block unit scale, so
+    the f32 reference exercises the convs inside the blocks (at the initial
+    zero each block is the identity)."""
+    import torch
+    with torch.no_grad():
+        for module in model.modules():
+            if getattr(module, "zero_init", False):
+                module.weight.fill_(1.0)
+
+
+def run_slice(label, config, per_forward, records, image_size, prepare_reference=None):
     """The inference slice of one model: ``per_forward`` maps each kernel to
-    its launches per forward; ``records`` maps it to its JSON record."""
+    its launches per forward; ``records`` maps it to its JSON record.
+    ``prepare_reference`` may change the model before the f32 reference run."""
     import numpy as np
     import torch
     from torchok_tpu_torch.__main__ import run
-    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
+    from torchok_tpu_torch.ops.common import LAUNCHES
 
     # warm-up run (cuDNN/cuBLAS plans, allocator) outside the measured one
     warm = copy.deepcopy(config)
@@ -657,8 +1124,9 @@ def run_slice(label, config, per_forward, records, image_size):
     test_counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     stats = trainer.last_eval
+    batch_size = config["data"]["TEST"][0]["dataloader"]["batch_size"]
     print(f"{label} test: {stats['images']} images in {stats['seconds']:.4f} s = "
-          f"{stats['images'] / stats['seconds']:.2f} img/s (bs128 bf16, 3 batches, host "
+          f"{stats['images'] / stats['seconds']:.2f} img/s (bs{batch_size} bf16, 3 batches, host "
           f"clock incl. loading); peak device memory {peak / 2**20:.1f} MiB; "
           f"launches {test_counts}; logs {logs}", flush=True)
 
@@ -678,13 +1146,15 @@ def run_slice(label, config, per_forward, records, image_size):
         fail(f"{label}: predict returned {len(preds)} batches, expected {BATCHES}")
     for p in preds:
         logits = p["prediction"]
-        if logits.shape != (128, 1000) or not np.isfinite(logits).all():
+        if logits.shape != (batch_size, 1000) or not np.isfinite(logits).all():
             fail(f"{label}: bad logits: shape {logits.shape}, "
                  f"finite {bool(np.isfinite(logits).all())}")
 
     # reference on a small input: the same weights in f32, kernels on the
     # card against the plain attention on the CPU
     model = trainer.state.model.float()
+    if prepare_reference is not None:
+        prepare_reference(model)
     image = torch.from_numpy(trainer.task.predict_dataloader()[0].dataset.images[:2])
     if tuple(image.shape[1:3]) != (image_size, image_size):
         fail(f"{label}: images are {tuple(image.shape)}, expected {image_size} px")
@@ -694,6 +1164,8 @@ def run_slice(label, config, per_forward, records, image_size):
         on_card = model({"image": batch["image"].cuda()})["prediction"].cpu()
         on_cpu = model.cpu()({"image": batch["image"]})["prediction"]
     err = (on_card - on_cpu).abs().max().item()
+    # other summation orders through every layer, f32 on both sides (TF32 off
+    # for matmul and cuDNN)
     print(f"{label} reference (f32, 2 images, card vs CPU): max_abs_err={err:.3e} "
           f"(tol 1e-3), logit scale {on_cpu.abs().max().item():.3e}", flush=True)
     if not err <= 1e-3:
@@ -702,14 +1174,14 @@ def run_slice(label, config, per_forward, records, image_size):
         records[kernel]["launches"] += count
 
 
-def smoke_train_config(epochs: int, config=None, size: int = 256):
+def smoke_train_config(epochs: int, config=None, size: int = 256, batch: int = 128):
     """A train recipe (``TRAIN_CONFIG`` by default) with the train set cut to
     one batch, repeated for ``epochs`` one-step epochs (so each epoch's
     ``train/loss`` is one step's loss), one sanity validation batch and one
     validation batch at the end."""
     cfg = copy.deepcopy(TRAIN_CONFIG if config is None else config)
-    cfg["data"]["TRAIN"] = _synthetic(128, False, True, size)
-    cfg["data"]["VALID"] = _synthetic(128, False, False, size, seed=1)
+    cfg["data"]["TRAIN"] = _synthetic(batch, False, True, size, batch)
+    cfg["data"]["VALID"] = _synthetic(batch, False, False, size, batch, seed=1)
     cfg["trainer"].update(max_epochs=epochs, check_val_every_n_epoch=epochs)
     return cfg
 
@@ -721,7 +1193,7 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
     import torch
     from torchok_tpu_torch.__main__ import run
     from torchok_tpu_torch.engine.callbacks import Callback
-    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
+    from torchok_tpu_torch.ops.common import LAUNCHES
 
     class Recorder(Callback):
         def __init__(self):
@@ -735,14 +1207,16 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
         def on_epoch_end(self, trainer, task, logs):
             self.epochs.append(dict(logs))
 
+    batch = config["data"]["TRAIN"][0]["dataloader"]["batch_size"]
     # warm-up run (cuBLAS plans, allocator, optimizer kernels) outside the measured one
-    run(smoke_train_config(2, config, size), "train")
+    run(smoke_train_config(2, config, size, batch), "train")
     torch.cuda.synchronize()
 
     recorder = Recorder()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    trainer, logs = run(smoke_train_config(TRAIN_STEPS, config, size), "train", [recorder])
+    trainer, logs = run(smoke_train_config(TRAIN_STEPS, config, size, batch), "train",
+                        [recorder])
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -750,7 +1224,7 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
     losses = [e["train/loss"] for e in recorder.epochs]
     print(f"{label} train: {stats['steps']} steps, {stats['images']} images in "
           f"{stats['seconds']:.4f} s = {stats['images'] / stats['seconds']:.2f} img/s "
-          f"(bs128 bf16, a smoke reading: host clock, first fetch to each step's loss "
+          f"(bs{batch} bf16, a smoke reading: host clock, first fetch to each step's loss "
           f"read-back, one step per epoch); peak device memory {peak / 2**20:.1f} MiB; "
           f"launches {counts}", flush=True)
     print(f"{label} train losses per step: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
@@ -794,7 +1268,7 @@ def gradient_reference(label, config, size, want, probe):
     from torchok_tpu_torch.constructor import TASKS
     from torchok_tpu_torch.constructor.config import config_from_dict
     from torchok_tpu_torch.constructor.config_structure import merge_structured
-    from torchok_tpu_torch.ops.swin_attention import LAUNCHES
+    from torchok_tpu_torch.ops.common import LAUNCHES
 
     cfg = copy.deepcopy(config)
     cfg["task"]["params"]["backbone_params"]["drop_path_rate"] = 0.0
@@ -858,10 +1332,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from torchok_tpu_torch.ops import conv_bn, conv_gemm
     from torchok_tpu_torch.ops import swin_attention as swin
+    from torchok_tpu_torch.ops import window_attention as wa
     from torchok_tpu_torch.ops import window_attention_dot as dot
     from torchok_tpu_torch.utils.cuda_build import build_log, load_libraries
-    kernels = (swin.KERNEL, swin.KERNEL_BWD) + dot.KERNELS
+    kernels = (swin.KERNEL, swin.KERNEL_BWD) + dot.KERNELS + (wa.KERNEL, conv_bn.KERNEL,
+                                                              conv_gemm.KERNEL)
     start = time.perf_counter()
     load_libraries(kernels)
     print(f"built {', '.join(kernels)} side by side in {time.perf_counter() - start:.2f} s",
@@ -875,7 +1352,10 @@ def main() -> None:
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()
-    records = {r["name"]: r for r in (k1, k2, k3a, k3b, k4, k5)}
+    k6, k7, k8 = check_k6(), check_k7(), check_k8()
+    all_records = (k1, k2, k3a, k3b, k4, k5, k6, k7, k8)
+    records = {r["name"]: r for r in all_records}
+    run_op_paths(records)
 
     swin_fwd, swin_bwd = {swin.KERNEL: 12}, {swin.KERNEL_BWD: 12}
     run_slice("swinv2_tiny", SLICE_CONFIG, swin_fwd, records, 256)
@@ -895,7 +1375,17 @@ def main() -> None:
     run_train_slice("davit_t", DAVIT_TRAIN_CONFIG, 224, {dot.KERNEL: DAVIT_SPATIAL},
                     {dot.KERNEL_BWD: DAVIT_SPATIAL}, ("main_blocks.0.0.0.attn.qkv",), records)
 
-    print(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5]}), flush=True)
+    # the JAX ResNet reaches no Pallas kernel, so the port's reaches none of
+    # the hand-written kernels: every counter stays at 0 through these runs
+    run_slice("resnet50", RESNET_SLICE_CONFIG, {}, records, 224, unzero_last_norms)
+    run_train_slice("resnet50", RESNET_TRAIN_CONFIG, 224, {}, {},
+                    ("layer1.0.conv1.weight", "layer4.2.bn3.weight", "layer3.5.bn2.running_var",
+                     "head"), records)
+    print("resnet50: 0 launches of every hand-written kernel in test, predict and train, as "
+          "the JAX ResNet calls no Pallas kernel either (K7 and K8 are reached through "
+          "their ops above)", flush=True)
+
+    print(json.dumps({"kernels": list(all_records)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

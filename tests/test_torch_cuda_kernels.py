@@ -246,3 +246,200 @@ def test_window_attention_kernels_refuse_what_they_do_not_take(cuda_device):
                                       scale[:1], None, 7, 1)
     with pytest.raises(ValueError, match="dout has shape"):
         dot.window_attention_global_bwd_cuda(proj, qg, scale, bias, dout[:1], ws, heads)
+
+
+# ---------------------------------------------------------------------------
+# K6: cosine window attention on pre-partitioned head-major windows
+# ---------------------------------------------------------------------------
+def _mw_inputs(device, dtype, L, d, n_mask, b=3, nw=4, heads=3, seed=6):
+    rng = np.random.default_rng(seed)
+
+    def tensor(*size, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=size)).astype(np.float32)).to(device)
+
+    q, k, v = (tensor(b * nw, heads, L, d).to(dtype) for _ in range(3))
+    logit_scale = tensor(heads) + float(np.log(10.0))
+    bias = tensor(heads, L, L)
+    rows = {"none": 0, "one": 1, "compact": nw, "tiled": b * nw}[n_mask]
+    mask = -100.0 * (tensor(rows, L, L) > 1.0).float() if rows else None
+    return q, k, v, logit_scale, bias, mask
+
+
+# the kernel and its plain version are f32 throughout and round once; in bf16
+# a different summation order moves an output by at most one bf16 ulp (2^-8
+# of |out| <= max|v| ~ 4)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,d", [(64, 32), (16, 8), (64, 8), (16, 32)])
+@pytest.mark.parametrize("n_mask", ["none", "one", "compact", "tiled"])
+def test_window_attention_mw_kernel_matches_plain(cuda_device, dtype, atol, L, d, n_mask):
+    from torchok_tpu_torch.ops import window_attention as wa
+    args = _mw_inputs(cuda_device, dtype, L, d, n_mask)
+    before = ops.LAUNCHES[wa.KERNEL]
+    got = wa.window_attention_mw_cuda(*args)
+    ref = wa.window_attention_mw_plain(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[wa.KERNEL] == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert (got.float() - ref.float()).abs().max().item() <= atol
+    # against the einsum formulation (unit vectors rounded to the input type,
+    # x / (|x| + eps)): 2e-4 in f32, as the JAX package holds its kernel
+    if dtype == torch.float32:
+        xla = wa.window_attention_einsum(*args)
+        assert (got - xla).abs().max().item() <= 2e-4
+
+
+def test_window_attention_hybrid_on_the_card(cuda_device):
+    from torchok_tpu_torch.ops import window_attention as wa
+    q, k, v, logit_scale, bias, mask = _mw_inputs(cuda_device, torch.float32, 64, 32, "compact")
+    blhd = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    logit_scale.requires_grad_(True)
+    bias.requires_grad_(True)
+    before = dict(ops.LAUNCHES)
+    out = wa.window_attention(*blhd, logit_scale, bias, mask, True, layout="blhd")
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[wa.KERNEL] == before.get(wa.KERNEL, 0) + 1
+    assert ops.LAUNCHES[wa.PLAIN] == before.get(wa.PLAIN, 0)
+    got = [t.grad.clone() for t in (*blhd, logit_scale, bias)]
+    for t in (*blhd, logit_scale, bias):
+        t.grad = None
+    ref_out = wa.window_attention(*blhd, logit_scale, bias, mask, False, layout="blhd")
+    ref_out.square().sum().backward()
+    assert out.shape == ref_out.shape == blhd[0].shape
+    # the backward is the einsum formulation's in both; the cotangent 2*out
+    # differs by the forward's 2e-4
+    for g, t in zip(got, (*blhd, logit_scale, bias)):
+        assert (g - t.grad).abs().max().item() <= 1e-3 * max(1.0, t.grad.abs().max().item())
+
+
+def test_window_attention_mw_kernel_refuses_what_it_does_not_take(cuda_device):
+    from torchok_tpu_torch.ops import window_attention as wa
+    q, k, v, logit_scale, bias, mask = _mw_inputs(cuda_device, torch.float32, 16, 8, "compact")
+    with pytest.raises(TypeError):
+        wa.window_attention_mw_cuda(q.half(), k.half(), v.half(), logit_scale, bias, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        wa.window_attention_mw_cuda(q, k.transpose(0, 1).contiguous().transpose(0, 1), v,
+                                    logit_scale, bias, mask)
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_attention_mw_cuda(q[..., :4].contiguous(), k[..., :4].contiguous(),
+                                    v[..., :4].contiguous(), logit_scale, bias, mask)
+    with pytest.raises(ValueError, match="window types"):
+        wa.window_attention_mw_cuda(q, k, v, logit_scale, bias, torch.cat([mask, mask[:1]]))
+
+
+# ---------------------------------------------------------------------------
+# K7: 1x1-conv GEMM with fused BatchNorm prologue and statistics
+# ---------------------------------------------------------------------------
+def _bn_inputs(device, dtype, m, k, n, seed=7):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32)).to(device, dtype)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (k,)).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(0, 0.2, (k,)).astype(np.float32)).to(device)
+    return x, w, scale, bias
+
+
+# y: f32 sums in another order (1e-4 of the largest value), or one bf16 ulp
+# (2^-7 of it); s1/s2: rtol 1e-4 / atol 1e-2 as the JAX package's test, the
+# atol scaled by the largest |y| for bf16's one-ulp flips
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(256, 128, 128), (200, 64, 256), (130, 128, 128),
+                                   (3000, 256, 64), (1, 8, 8), (777, 72, 40)])
+@pytest.mark.parametrize("relu_in,with_affine", [(False, False), (True, False), (False, True),
+                                                 (True, True)])
+def test_matmul_bn_kernel_matches_plain(cuda_device, dtype, rel, m, k, n, relu_in, with_affine):
+    from torchok_tpu_torch.ops import conv_bn
+    args = _bn_inputs(cuda_device, dtype, m, k, n)
+    before = ops.LAUNCHES[conv_bn.KERNEL]
+    got = conv_bn.matmul_bn_cuda(*args, relu_in, with_affine)
+    again = conv_bn.matmul_bn_cuda(*args, relu_in, with_affine)
+    ref = conv_bn.matmul_bn_plain(*args, relu_in, with_affine)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[conv_bn.KERNEL] == before + 2
+    assert got[0].dtype == dtype and got[0].shape == (m, n)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)  # no atomics: bit-identical from run to run
+    top = ref[0].float().abs().max().item()
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= rel * top
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == torch.float32 and g.shape == (n,)
+        assert bool(((g - r).abs() <= 1e-4 * r.abs() + 1e-2 * max(1.0, top)).all())
+
+
+def test_matmul_bn_autograd_on_the_card(cuda_device):
+    from torchok_tpu_torch.ops import conv_bn
+    x, w, scale, bias = _bn_inputs(cuda_device, torch.float32, 192, 64, 128)
+    cw = torch.linspace(-1, 1, 128, device=cuda_device)
+
+    def loss(fn, *leaves):
+        y, s1, s2 = fn(*leaves, True, True)
+        return (y * cw).sum() + 0.1 * s1.sum() + 0.01 * s2.sum()
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, scale, bias)]
+    before = dict(ops.LAUNCHES)
+    loss(conv_bn.matmul_bn, *leaves).backward()
+    assert ops.LAUNCHES[conv_bn.KERNEL] == before.get(conv_bn.KERNEL, 0) + 1
+    assert ops.LAUNCHES[conv_bn.PLAIN] == before.get(conv_bn.PLAIN, 0)
+    ref = [t.clone().requires_grad_(True) for t in (x, w, scale, bias)]
+    loss(conv_bn.matmul_bn_plain, *ref).backward()  # autograd through the plain version
+    for a, b in zip(leaves, ref):
+        assert (a.grad - b.grad).abs().max().item() <= 2e-3 * max(1.0, b.grad.abs().max().item())
+
+
+def test_matmul_bn_kernel_refuses_what_it_does_not_take(cuda_device):
+    from torchok_tpu_torch.ops import conv_bn
+    x, w, scale, bias = _bn_inputs(cuda_device, torch.float32, 64, 64, 64)
+    with pytest.raises(TypeError):
+        conv_bn.matmul_bn_cuda(x.half(), w.half(), scale, bias)
+    with pytest.raises(TypeError, match="w must be"):
+        conv_bn.matmul_bn_cuda(x, w.bfloat16(), scale, bias)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv_bn.matmul_bn_cuda(x[:, :60].contiguous(), w[:60].contiguous(), scale[:60], bias[:60])
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_bn.matmul_bn_cuda(x.t().contiguous().t(), w, scale, bias)
+    with pytest.raises(ValueError, match="scale has shape"):
+        conv_bn.matmul_bn_cuda(x, w, scale[:8], bias)
+
+
+# ---------------------------------------------------------------------------
+# K8: 3x3 conv as an implicit GEMM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 9, 9, 16, 16), (2, 8, 8, 24, 24), (3, 7, 7, 64, 128),
+                                   (2, 14, 14, 256, 256), (1, 1, 1, 8, 8), (5, 3, 11, 40, 72)])
+def test_conv3x3_gemm_kernel_matches_plain_and_conv2d(cuda_device, dtype, rel, shape):
+    from torchok_tpu_torch.ops import conv_gemm
+    n, h, w_, cin, cout = shape
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy((0.5 * rng.normal(size=(n, h, w_, cin))).astype(np.float32))
+    w = torch.from_numpy((0.05 * rng.normal(size=(3, 3, cin, cout))).astype(np.float32))
+    x, w = x.to(cuda_device, dtype), w.to(cuda_device, dtype)
+    before = ops.LAUNCHES[conv_gemm.KERNEL]
+    got = conv_gemm.conv3x3_gemm(x, w)
+    ref = conv_gemm.conv3x3_gemm_plain(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[conv_gemm.KERNEL] == before + 1
+    assert got.dtype == dtype and got.shape == (n, h, w_, cout)
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= rel * top
+    torch.backends.cudnn.allow_tf32 = False
+    lib = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                                     padding=1).permute(0, 2, 3, 1)
+    assert (got.float() - lib).abs().max().item() <= max(rel, 1e-4) * top
+
+
+def test_conv3x3_gemm_kernel_refuses_what_it_does_not_take(cuda_device):
+    from torchok_tpu_torch.ops import conv_gemm
+    x = torch.zeros((2, 8, 8, 16), device=cuda_device)
+    w = torch.zeros((3, 3, 16, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        conv_gemm.conv3x3_gemm_cuda(x.half(), w.half())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv_gemm.conv3x3_gemm_cuda(x[..., :12].contiguous(), w[:, :, :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_gemm.conv3x3_gemm_cuda(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match=r"\(3, 3, Cin, Cout\)"):
+        conv_gemm.conv3x3_gemm_cuda(x, w[:2])

@@ -2,11 +2,11 @@
 """Where the device time of the torchok_tpu_torch slices goes, on one NVIDIA
 GPU.
 
-    python tools/profile_torch_slice.py [--model swinv2|gcvit_tiny|davit_t]
+    python tools/profile_torch_slice.py [--model swinv2|gcvit_tiny|davit_t|resnet50]
         [--mode eval|train] [--batches 3] [--trace PATH]
 
 ``--mode eval`` builds the model's inference slice from ``chip_smoke``'s
-config (bs 128, bf16 autocast; davit_t has a train recipe only, so its eval
+config (bs 128, resnet50 bs 256, bf16 autocast; davit_t has a train recipe only, so its eval
 slice is that recipe's validation data) through
 ``torchok_tpu_torch.__main__.run`` (one warm-up batch) and profiles the
 trainer's eval loop; ``--mode train`` builds the train slice from
@@ -42,10 +42,15 @@ KINDS = [  # first match wins
     ("K3b/K5 dbias reduce", r"window_attention_bwd_reduce"),
     ("K4 window_attention_global_fwd", r"window_attention_fwd_kernel" + _GLOBAL),
     ("K3a window_attention_fwd", r"window_attention_fwd_kernel"),
+    ("K6 window_attention_mw_fwd", r"window_attention_mw_fwd"),
+    ("K7 matmul_bn_fwd (+ reduce)", r"matmul_bn_(fwd|reduce)"),
+    ("K8 conv3x3_gemm", r"conv3x3_gemm"),
     ("optimizer (Adam, foreach)", r"multi_tensor_apply|[Aa]dam"),
     ("max pool", r"max_pool|MaxPool"),
     # cuDNN names its depthwise kernels by one channel per group (c1_k1)
     ("depthwise conv", r"[Dd]epthwise|2d_c1_k1"),
+    # before the convs (cuDNN names its BatchNorm kernels too); only the ResNets have any
+    ("BatchNorm", r"batch_norm|BatchNorm|batchnorm|bn_fw|bn_bw"),
     ("conv (stem, downsample, embed)", r"conv|cudnn|implicit_gemm|xmma_fprop|wgrad|dgrad"),
     ("GEMM (Linear)", r"gemm|cutlass|nvjet|sm90_xmma|cublas"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
@@ -66,7 +71,8 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", choices=("swinv2", "gcvit_tiny", "davit_t"), default="swinv2")
+    parser.add_argument("--model", choices=("swinv2", "gcvit_tiny", "davit_t", "resnet50"),
+                        default="swinv2")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=3)
     parser.add_argument("--trace", default=None, help="write a Chrome trace here")
@@ -85,10 +91,12 @@ def main() -> None:
 
     print(chip_smoke.card_line())
     train_config = {"swinv2": chip_smoke.TRAIN_CONFIG, "gcvit_tiny": chip_smoke.GCVIT_TRAIN_CONFIG,
-                    "davit_t": chip_smoke.DAVIT_TRAIN_CONFIG}[args.model]
+                    "davit_t": chip_smoke.DAVIT_TRAIN_CONFIG,
+                    "resnet50": chip_smoke.RESNET_TRAIN_CONFIG}[args.model]
     if args.mode == "eval":
         cfg = {"swinv2": chip_smoke.SLICE_CONFIG,
-               "gcvit_tiny": chip_smoke.GCVIT_SLICE_CONFIG}.get(args.model)
+               "gcvit_tiny": chip_smoke.GCVIT_SLICE_CONFIG,
+               "resnet50": chip_smoke.RESNET_SLICE_CONFIG}.get(args.model)
         if cfg is None:
             cfg = {k: v for k, v in train_config.items()
                    if k not in ("joint_loss", "optimization", "data")}
@@ -156,7 +164,8 @@ def main() -> None:
         by_kind[kind_of(name)] += us
 
     n = args.batches
-    print(f"{args.model} {args.mode} loop: {n} batches of 128, wall {wall_ms:.3f} ms "
+    batch_size = train_config["data"]["TRAIN"][0]["dataloader"]["batch_size"]
+    print(f"{args.model} {args.mode} loop: {n} batches of {batch_size}, wall {wall_ms:.3f} ms "
           f"(profiler on), "
           f"kernel time {total_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1 - busy_us / 1e3 / wall_ms:.4f}")

@@ -13,9 +13,10 @@ host-side scheduler moves.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Collection, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import torch
+from torch import nn
 
 from torchok_tpu_torch.constructor import DATASETS, LOSSES, OPTIMIZERS, SCHEDULERS, TRANSFORMS
 from torchok_tpu_torch.constructor.config import ConfigNode
@@ -43,6 +44,18 @@ def _is_norm_param(path: str) -> bool:
     return any(tok in lowered for tok in ("bn", "norm", "batchnorm", "layernorm", "groupnorm"))
 
 
+def norm_parameter_names(model: nn.Module) -> Set[str]:
+    """Names of the parameters owned by normalisation modules. timm's names
+    hide some of them from :func:`_is_norm_param` (a ResNet's
+    ``downsample.1.weight``, ``conv1.1.bias``, ``maxpool.1.weight``) where the
+    JAX package's names (``downsample/bn/scale``, ``bn1_0/bias``) do not."""
+    from torchok_tpu_torch.models.modules.bricks.batchnorm import BatchNorm2d
+    kinds = (BatchNorm2d, nn.GroupNorm, nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+    return {f"{prefix}.{name}" if prefix else name
+            for prefix, module in model.named_modules() if isinstance(module, kinds)
+            for name, _ in module.named_parameters(recurse=False)}
+
+
 def _is_dwconv_weight(path: str, param: torch.Tensor) -> bool:
     # Conv2d weights are OIHW: one input channel per group means depthwise
     return path.endswith("weight") and param.ndim == 4 and param.shape[1] == 1
@@ -61,7 +74,8 @@ class Constructor:
     # ------------------------------------------------------------------
     def configure_optimizers(self, named_parameters: Iterable[Tuple[str, torch.Tensor]],
                              no_weight_decay_paths: Sequence[str] = (),
-                             optim_idx: int = -1) -> List[OptimizerBundle]:
+                             optim_idx: int = -1, norm_names: Collection[str] = ()
+                             ) -> List[OptimizerBundle]:
         named_parameters = list(named_parameters)
         optims_params = self._hparams.optimization or []
         if 0 <= optim_idx < len(optims_params):
@@ -74,7 +88,7 @@ class Constructor:
         bundles = []
         for op in optims_params:
             optimizer, group_lrs = self.create_optimizer(named_parameters, op.optimizer,
-                                                         no_weight_decay_paths)
+                                                         no_weight_decay_paths, norm_names)
             bundle = OptimizerBundle(optimizer=optimizer, group_base_lrs=group_lrs)
             sched = op.get("scheduler")
             if sched:
@@ -90,9 +104,11 @@ class Constructor:
 
     @staticmethod
     def param_labels(named_parameters: Iterable[Tuple[str, torch.Tensor]],
-                     optimizer_params, no_weight_decay_paths: Sequence[str] = ()
-                     ) -> Dict[str, str]:
-        """``lr{lr_mult}_wd{decay_mult}`` label of every parameter, by name."""
+                     optimizer_params, no_weight_decay_paths: Sequence[str] = (),
+                     norm_names: Collection[str] = ()) -> Dict[str, str]:
+        """``lr{lr_mult}_wd{decay_mult}`` label of every parameter, by name.
+        ``norm_names`` (see :func:`norm_parameter_names`) are norm parameters
+        whatever they are called."""
         opt_cfg = _as_dict(optimizer_params.get("params") or {})
         paramwise_cfg = _as_dict(optimizer_params.get("paramwise_cfg") or {})
         base_wd = opt_cfg.get("weight_decay", None)
@@ -116,7 +132,7 @@ class Constructor:
                     break
             if not matched:
                 is_bias = p.endswith("bias")
-                is_norm = _is_norm_param(p)
+                is_norm = _is_norm_param(p) or p in norm_names
                 if is_bias and not is_norm:
                     lr_mult = bias_lr_mult
                 if base_wd is not None:
@@ -136,7 +152,8 @@ class Constructor:
 
     @staticmethod
     def create_optimizer(named_parameters: Iterable[Tuple[str, torch.Tensor]],
-                         optimizer_params, no_weight_decay_paths: Sequence[str] = ()
+                         optimizer_params, no_weight_decay_paths: Sequence[str] = (),
+                         norm_names: Collection[str] = ()
                          ) -> Tuple[torch.optim.Optimizer, Dict[str, float]]:
         named_parameters = list(named_parameters)
         opt_factory = OPTIMIZERS.get(optimizer_params.name)
@@ -144,7 +161,7 @@ class Constructor:
         base_lr = opt_cfg.pop("lr", opt_cfg.pop("learning_rate", 1e-3))
         base_wd = opt_cfg.get("weight_decay", None)
         labels = Constructor.param_labels(named_parameters, optimizer_params,
-                                          no_weight_decay_paths)
+                                          no_weight_decay_paths, norm_names)
 
         group_lrs: Dict[str, float] = {}
         groups: List[Dict[str, Any]] = []

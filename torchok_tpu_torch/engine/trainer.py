@@ -35,6 +35,7 @@ import torch
 
 from torchok_tpu_torch.constructor.config import ConfigNode
 from torchok_tpu_torch.constructor.config_structure import Phase, TrainerParams
+from torchok_tpu_torch.constructor.constructor import norm_parameter_names
 from torchok_tpu_torch.engine.callbacks import Callback
 from torchok_tpu_torch.engine.state import TrainState
 from torchok_tpu_torch.ops.common import install_dropout_generator
@@ -286,7 +287,8 @@ class Trainer:
             raise NotImplementedError(
                 f"{len(optimization)} optimization groups: only one is ported yet")
         self.bundles = task.constructor.configure_optimizers(
-            model.named_parameters(), task.no_weight_decay()) if optimization else []
+            model.named_parameters(), task.no_weight_decay(),
+            norm_names=norm_parameter_names(model)) if optimization else []
         self.state.optimizers = [b.optimizer for b in self.bundles]
 
     # ------------------------------------------------------------------

@@ -1,1 +1,1 @@
-from torchok_tpu_torch.models.backbones import davit, gcvit, swin  # noqa: F401
+from torchok_tpu_torch.models.backbones import davit, gcvit, resnet, swin  # noqa: F401

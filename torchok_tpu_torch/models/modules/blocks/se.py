@@ -1,6 +1,6 @@
 """Squeeze-excitation channel attention (port of ``SEModule`` and
-``make_divisible`` of ``torchok_tpu.models.modules.blocks.se``; ``EcaModule``
-is not ported yet)."""
+``make_divisible`` and ``EcaModule`` of
+``torchok_tpu.models.modules.blocks.se``)."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -40,5 +40,16 @@ class SEModule(nn.Module):
 
 
 class EcaModule(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("EcaModule is not ported yet")
+    """Efficient channel attention over NCHW: a 1-D conv (odd kernel, zero
+    padding, no bias) over the channel descriptor, then a sigmoid gate."""
+
+    def __init__(self, kernel_size: int = 3):
+        super().__init__()
+        if kernel_size % 2 == 0:
+            raise ValueError(f"EcaModule needs an odd kernel_size, got {kernel_size}")
+        self.conv = nn.Conv1d(1, 1, kernel_size, padding=(kernel_size - 1) // 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean((2, 3))[:, None, :]  # (N, 1, C): the conv runs along the channels
+        s = torch.sigmoid(self.conv(s))[:, 0]
+        return x * s[:, :, None, None]

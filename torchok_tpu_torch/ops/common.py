@@ -1,12 +1,37 @@
-"""Small shared compute ops (stochastic depth, initializers)."""
+"""Small shared compute ops (stochastic depth, initializers) and what the
+kernel wrappers of this package share (launch counts, argument checks)."""
 from __future__ import annotations
 
+import collections
 import contextlib
+import math
 from typing import Callable, Optional
 
 import torch
 import torch.utils.checkpoint as checkpoint_util
 from torch import nn
+
+LN_100 = math.log(100.0)  # SwinV2 caps the learned temperature at 100
+
+# launches per path; a kernel wrapper adds one per kernel launch and a
+# dispatcher one per plain call, so a run can show which path it took
+LAUNCHES: collections.Counter = collections.Counter()
+
+# the element types the kernels take, as their entry points number them
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_tensor(t: torch.Tensor, name: str, shape, dtype, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this shape and type on
+    ``device``: what a kernel's entry point takes as a bare pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:

@@ -20,25 +20,20 @@ logit gradient is cast to the input dtype before the two products with it.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from torchok_tpu_torch.ops.window_attention import LN_100
+from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, LN_100, check_tensor
 
 _EPS = 1e-12
 
-# launches per path; the kernel wrapper adds one per kernel launch and the
-# dispatcher one per plain call, so a run can show which path it took
-LAUNCHES: collections.Counter = collections.Counter()
 KERNEL = "swin_attention_fwd"
 PLAIN = "swin_attention_fwd_plain"
 KERNEL_BWD = "swin_attention_bwd"
 PLAIN_BWD = "swin_attention_bwd_plain"
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WS = 8
 _KERNEL_D = 32
 
@@ -162,24 +157,13 @@ def _function(name: str):
     return load_function(name, _ARGTYPES[name])
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_attention_args(kernel: str, qkv: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, mask: Optional[torch.Tensor],
                           ws: int, nheads: int) -> None:
     """Raise on devices, shapes, types or layouts the kernels do not take."""
     if qkv.device.type != "cuda":
         raise ValueError(f"qkv must be a CUDA tensor, got {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODE:
+    if qkv.dtype not in DTYPE_CODE:
         raise TypeError(f"{kernel} takes float32 or bfloat16 qkv, got {qkv.dtype}")
     if qkv.dim() != 4 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, Hp, Wp, 3C), got {tuple(qkv.shape)}")
@@ -194,10 +178,10 @@ def _check_attention_args(kernel: str, qkv: torch.Tensor, scale: torch.Tensor,
         raise ValueError("qkv must be contiguous")
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
-    _check(scale, "scale", (nheads,), torch.float32, qkv.device)
-    _check(bias, "bias", (nheads, L, L), torch.float32, qkv.device)
+    check_tensor(scale, "scale", (nheads,), torch.float32, qkv.device)
+    check_tensor(bias, "bias", (nheads, L, L), torch.float32, qkv.device)
     if mask is not None:
-        _check(mask, "mask", (nw, L, L), torch.float32, qkv.device)
+        check_tensor(mask, "mask", (nw, L, L), torch.float32, qkv.device)
 
 
 def swin_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
@@ -213,7 +197,7 @@ def swin_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     err = _function(KERNEL)(
         qkv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        _DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
+        DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
     LAUNCHES[KERNEL] += 1
@@ -239,7 +223,7 @@ def swin_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     _check_attention_args(KERNEL_BWD, qkv, scale, bias, mask, ws, nheads)
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
-    _check(dout, "dout", (b, hp, wp, c), qkv.dtype, qkv.device)
+    check_tensor(dout, "dout", (b, hp, wp, c), qkv.dtype, qkv.device)
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
     per_block = _images_per_block(b, nw * nheads, qkv.device)
@@ -256,7 +240,7 @@ def swin_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
         mask.data_ptr() if mask is not None else None, dout.data_ptr(),
         dqkv.data_ptr(), dbias.data_ptr(), dscale.data_ptr(),
         partial_bias.data_ptr(), partial_scale.data_ptr(),
-        _DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
+        DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_BWD} launch failed: CUDA error {err}")
     LAUNCHES[KERNEL_BWD] += 1
@@ -289,7 +273,7 @@ class SwinAttentionFunction(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, dout):
         qkv, scale, bias, mask = ctx.saved_tensors
-        if dout.dtype not in _DTYPE_CODE:
+        if dout.dtype not in DTYPE_CODE:
             raise TypeError(f"{KERNEL_BWD} takes a float32 or bfloat16 dout, got {dout.dtype}")
         # proj's backward may hand over a strided or f32 gradient
         dout = dout.to(qkv.dtype).contiguous()

@@ -38,8 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from torchok_tpu_torch.ops.swin_attention import (LAUNCHES, _DTYPE_CODE, _check,
-                                                  _images_per_block, from_windows, to_windows)
+from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
+from torchok_tpu_torch.ops.swin_attention import _images_per_block, from_windows, to_windows
 
 KERNEL = "window_attention_fwd"
 PLAIN = "window_attention_fwd_plain"
@@ -191,7 +191,7 @@ def _check_args(kernel: str, proj: torch.Tensor, parts: int, scale: torch.Tensor
     returns C."""
     if proj.device.type != "cuda":
         raise ValueError(f"{kernel} takes CUDA tensors, got {proj.device}")
-    if proj.dtype not in _DTYPE_CODE:
+    if proj.dtype not in DTYPE_CODE:
         raise TypeError(f"{kernel} takes float32 or bfloat16, got {proj.dtype}")
     if proj.dim() != 4 or proj.shape[-1] % parts:
         raise ValueError(f"{kernel} takes (B, Hp, Wp, {parts}C), got {tuple(proj.shape)}")
@@ -205,9 +205,9 @@ def _check_args(kernel: str, proj: torch.Tensor, parts: int, scale: torch.Tensor
     if not proj.is_contiguous():
         raise ValueError("the projection must be contiguous")
     _check_aligned(proj, "the projection")
-    _check(scale, "scale", (nheads,), torch.float32, proj.device)
+    check_tensor(scale, "scale", (nheads,), torch.float32, proj.device)
     if bias is not None:
-        _check(bias, "bias", (nheads, ws * ws, ws * ws), torch.float32, proj.device)
+        check_tensor(bias, "bias", (nheads, ws * ws, ws * ws), torch.float32, proj.device)
     return c
 
 
@@ -235,7 +235,7 @@ def window_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _function(KERNEL)(qkv.data_ptr(), scale.data_ptr(), _ptr(bias), out.data_ptr(),
-                            _DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
+                            DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
     _raise_on(err, KERNEL)
     return out
 
@@ -246,12 +246,12 @@ def window_attention_global_fwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: 
     version; ``qg`` in kv's dtype)."""
     c = _check_args(KERNEL_GLOBAL, kv, 2, scale, bias, ws, nheads)
     b, hp, wp, _ = kv.shape
-    _check(qg, "q_global", (b, ws * ws, c), kv.dtype, kv.device)
+    check_tensor(qg, "q_global", (b, ws * ws, c), kv.dtype, kv.device)
     _check_aligned(qg, "q_global")
     out = torch.empty((b, hp, wp, c), dtype=kv.dtype, device=kv.device)
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     err = _function(KERNEL_GLOBAL)(kv.data_ptr(), qg.data_ptr(), scale.data_ptr(),
-                                   bias.data_ptr(), out.data_ptr(), _DTYPE_CODE[kv.dtype],
+                                   bias.data_ptr(), out.data_ptr(), DTYPE_CODE[kv.dtype],
                                    b, hp, wp, c, nheads, ws, stream)
     _raise_on(err, KERNEL_GLOBAL)
     return out
@@ -264,7 +264,7 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     (arguments and results as the plain version)."""
     c = _check_args(KERNEL_BWD, qkv, 3, scale, bias, ws, nheads)
     b, hp, wp, _ = qkv.shape
-    _check(dout, "dout", (b, hp, wp, c), qkv.dtype, qkv.device)
+    check_tensor(dout, "dout", (b, hp, wp, c), qkv.dtype, qkv.device)
     _check_aligned(dout, "dout")
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
@@ -279,7 +279,7 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _function(KERNEL_BWD)(qkv.data_ptr(), scale.data_ptr(), _ptr(bias), dout.data_ptr(),
                                 dqkv.data_ptr(), _ptr(dbias), _ptr(partial),
-                                _DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block,
+                                DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block,
                                 stream)
     _raise_on(err, KERNEL_BWD)
     return dqkv, dbias
@@ -294,8 +294,8 @@ def window_attention_global_bwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: 
     c = _check_args(KERNEL_GLOBAL_BWD, kv, 2, scale, bias, ws, nheads)
     b, hp, wp, _ = kv.shape
     L = ws * ws
-    _check(qg, "q_global", (b, L, c), kv.dtype, kv.device)
-    _check(dout, "dout", (b, hp, wp, c), kv.dtype, kv.device)
+    check_tensor(qg, "q_global", (b, L, c), kv.dtype, kv.device)
+    check_tensor(dout, "dout", (b, hp, wp, c), kv.dtype, kv.device)
     _check_aligned(qg, "q_global")
     _check_aligned(dout, "dout")
     # one block per head and slice of the images, looping over their windows
@@ -311,7 +311,7 @@ def window_attention_global_bwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: 
     err = _function(KERNEL_GLOBAL_BWD)(
         kv.data_ptr(), qg.data_ptr(), scale.data_ptr(), bias.data_ptr(), dout.data_ptr(),
         dkv.data_ptr(), dqg.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
-        _DTYPE_CODE[kv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
+        DTYPE_CODE[kv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
     _raise_on(err, KERNEL_GLOBAL_BWD)
     return dkv, dqg, dbias
 
@@ -340,7 +340,7 @@ def _forward_global(kv, qg, scale, bias, ws: int, nheads: int) -> torch.Tensor:
 
 
 def _cast_dout(dout: torch.Tensor, like: torch.Tensor, kernel: str) -> torch.Tensor:
-    if dout.dtype not in _DTYPE_CODE:
+    if dout.dtype not in DTYPE_CODE:
         raise TypeError(f"{kernel} takes a float32 or bfloat16 dout, got {dout.dtype}")
     # proj's backward may hand over a strided or f32 gradient
     return dout.to(like.dtype).contiguous()

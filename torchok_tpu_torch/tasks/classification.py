@@ -73,3 +73,7 @@ class ClassificationTask(BaseTask):
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_init(self.model, generator)
+        # a backbone with an initial law of its own (ResNet: fan_out convs,
+        # zero-initialised last norms) draws it after the shared one
+        if hasattr(self.model.backbone, "init_weights"):
+            self.model.backbone.init_weights(generator)
