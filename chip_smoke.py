@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
-2. Builds the port's nine CUDA kernels from ``torchok_tpu_torch/csrc`` with
+2. Builds the port's ten CUDA kernels from ``torchok_tpu_torch/csrc`` with
    nvcc, one compiler per source, side by side, and prints each kernel's
    registers and spills.
 3. Holds each kernel against its plain PyTorch version on the card and times
@@ -34,17 +34,26 @@
    * K8 (3x3 conv as an implicit GEMM) at ResNet-50's four 3x3 shapes at
      batch 256 in bf16, batch 8 in f32 and one odd size, same y tolerances;
      its library call is ``F.conv2d`` on channels-last bf16.
-4. Drives the three op paths at full width, counters zeroed before and read
+   * K9 (one inference MBConv block, fused) at the JAX probe's two shapes
+     and EfficientNet-B0's nine blocks of its form (BatchNorms folded, eps
+     1e-3), batch 8 in f32 (<= 1e-4 of the largest |y|) and batch 256 in
+     bf16 (<= two ulps), bit-equal between two launches; its library time is
+     the unfused chain of library calls (``tools/probe_torch_mbconv_fused.py::
+     library_block``) at the probe's shapes and the blocks' own eval forwards
+     for the record.
+4. Drives the four op paths at full width, counters zeroed before and read
    after: ``window_attention(..., use_kernel=True)`` forward and backward
    through the hybrid at swinv2_tiny's stage-1 shape (against the einsum
    formulation); the 8-layer stage-4 bottleneck chain of
    ``tools/probe_torch_conv_bn.py`` forward and backward (8 K7 launches, no
    plain call, loss and gradients against the unfused chain); ``conv3x3_gemm``
-   over the four shapes (against ``F.conv2d``).
+   over the four shapes (against ``F.conv2d``); ``mbconv_fused`` over B0's
+   nine blocks at batch 256 in bf16 (9 K9 launches, each within one bf16
+   ulp of the block's f32 eval forward).
 5. Drives the slices through ``torchok_tpu_torch.__main__.run`` with the
    dicts below (each equal to its ``configs/classification_*_synthetic*.yaml``),
-   at full width, batch 128 (ResNet-50: 256), bf16 autocast, random weights
-   from the seed. The
+   at full width, batch 128 (ResNet-50, EfficientNet-B0, MobileNetV3: 256),
+   bf16 autocast, random weights from the seed. The
    launch counters are zeroed just before each run and read just after; the
    counts must be exactly the expected kernel launches and no plain call:
    * inference (``SLICE_CONFIG`` swinv2_tiny 256x256, ``GCVIT_SLICE_CONFIG``
@@ -64,12 +73,18 @@
      every launch counter must stay at 0 through these runs. Its f32 logits
      on the card (cuDNN and matmul TF32 off) are held to 1e-3 of the CPU run's
      as the others are;
+   * EfficientNet-B0 (``EFFNET_SLICE_CONFIG``, ``EFFNET_TRAIN_CONFIG``) in
+     modes test, predict and train and MobileNetV3-large
+     (``MNV3_SLICE_CONFIG``) in mode test, 224x224, batch 256, the same way:
+     the JAX EfficientNet and MobileNetV3 reach no Pallas kernel, so every
+     counter stays at 0;
    * one f32 forward + backward of swinv2_tiny and of gcvit_tiny on two images
      on the card (kernels) against the CPU (plain versions), over all
      parameter gradients, within 1e-3 of the largest gradient.
-6. Prints ``{"kernels": [...]}`` (K1 to K8; the K3 to K5 times are summed
+6. Prints ``{"kernels": [...]}`` (K1 to K9; the K3 to K5 times are summed
    over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
-   K7's over the chain's forward, K8's over its four shapes), the card line,
+   K7's over the chain's forward, K8's over its four shapes, K9's over B0's
+   nine blocks), the card line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -153,6 +168,9 @@ GCVIT_TRAIN_CONFIG = train_config("gcvit_tiny", 224, img_size=224)
 DAVIT_TRAIN_CONFIG = train_config("davit_t", 224)
 RESNET_SLICE_CONFIG = slice_config("resnet50", 224, batch=256)
 RESNET_TRAIN_CONFIG = train_config("resnet50", 224, batch=256)
+EFFNET_SLICE_CONFIG = slice_config("efficientnet_b0", 224, batch=256)
+EFFNET_TRAIN_CONFIG = train_config("efficientnet_b0", 224, batch=256)
+MNV3_SLICE_CONFIG = slice_config("mobilenetv3_large_100", 224, batch=256)
 TRAIN_STEPS = 10
 BATCHES = 3
 BLOCKS = (2, 2, 6, 2)  # SwinBlocks per stage of swinv2_tiny
@@ -964,6 +982,141 @@ def check_k8():
             "bound_ms": total_bound, "bound_by": bound_by, "library_ms": record["lib"]}
 
 
+# K9's shapes: the JAX probe's two (N, H = W, C, mid, rd, k) at batch 256
+MBCONV_PROBE = (("probe 56x56 mid144 k3", (56, 24, 144, 6, 3)),
+                ("probe 14x14 mid672 k5", (14, 112, 672, 28, 5)))
+EFFNET_BATCH = 256
+# f32 sums in other orders (f32), or up to two bf16 ulps of the largest |y|
+# (one where the two f32 results straddle a rounding boundary, and the
+# plain version's depthwise sums round per tap where the kernel fuses)
+MBCONV_TOLERANCE = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+
+def b0_cases(probe, device):
+    """B0's nine blocks of K9's form from the port's efficientnet_b0 (random
+    weights, randomized BatchNorm statistics): (name, block, folded f32
+    parameters, (hw, cin, mid, rd, k))."""
+    model = probe.b0_model(device)
+    out = []
+    for name, block, (hw, _) in probe.b0_blocks(model):
+        p = probe.fold_block(block)
+        mid = p["w_exp"].shape[1]
+        out.append((name, block, p, (hw, p["w_exp"].shape[0], mid, p["w_se1"].shape[1],
+                                     p["w_dw"].shape[0])))
+    return out
+
+
+def check_k9(probe, b0):
+    """K9 against its plain version at the probe's two shapes and B0's nine
+    blocks, f32 at batch 8 and bf16 at batch 256, twice for bit equality;
+    at batch 256 the kernel, the plain version and the library chain are
+    timed. The record sums B0's nine blocks; their library time is the
+    blocks' own eval forwards (bf16 autocast, channels-last)."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    device = torch.device("cuda", 0)
+    failures = []
+    worst_bf16 = 0.0
+    record = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0}
+    cases = [(label, shape, None, None) for label, shape in MBCONV_PROBE]
+    cases += [(f"b0 {name}", shape, block, p) for name, block, p, shape in b0]
+    for idx, (label, (hw, cin, mid, rd, k), block, folded) in enumerate(cases):
+        for dtype, n in ((torch.float32, CHECK_BATCH), (torch.bfloat16, EFFNET_BATCH)):
+            name = dtype_name(dtype)
+            rng = np.random.default_rng(70 + idx)
+            x = probe.make_input(rng, n, hw, cin, device, dtype)
+            p = folded if folded is not None else probe.make_params(rng, cin, mid, rd, k, device,
+                                                                    dtype)
+            got = mb.mbconv_fused_cuda(x, p)
+            again = mb.mbconv_fused_cuda(x, p)
+            ref = mb.mbconv_fused_plain(x, p)
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            top = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = same and bool(torch.isfinite(got).all().item()) \
+                and err <= MBCONV_TOLERANCE[name] * top
+            del got, again, ref
+            line = (f"K9 {name} {label} x=({n},{hw},{hw},{cin}) mid={mid} rd={rd} k={k}: "
+                    f"max_abs_err={err:.3e} (tol {MBCONV_TOLERANCE[name]:g} x max|y| {top:.3e}), "
+                    f"bit-equal twice={same}")
+            if n == EFFNET_BATCH:
+                worst_bf16 = max(worst_bf16, err)
+                k_ms = median_ms(lambda: mb.mbconv_fused_cuda(x, p))
+                p_ms = median_ms(lambda: mb.mbconv_fused_plain(x, p), TIMING_ITERS_SMALL)
+                if block is None:
+                    lw = probe.library_weights(p)
+                    with torch.inference_mode():
+                        lib_ms = median_ms(lambda: probe.library_block(x, lw))
+                    lib_name = "library_chain_ms"
+                else:
+                    xl = x.permute(0, 3, 1, 2)  # the channels-last NCHW view the model hands it
+                    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                        lib_ms = median_ms(lambda: block(xl))
+                    lib_name = "block_eval_forward_ms"
+                # x read and y written in bf16, the weights once; the JAX
+                # probe's operation count (the two 1x1 products, the taps)
+                nbytes = 2 * 2 * n * hw * hw * cin + sum(t.numel() * t.element_size()
+                                                         for t in p.values())
+                flops = probe.flops(n, hw, cin, mid, k)
+                b_ms, by = bound_ms(nbytes, flops, "bfloat16")
+                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} {lib_name}={lib_ms:.4f} "
+                         f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB, "
+                         f"{flops / 1e9:.2f} GFLOP) TFLOP/s={flops / k_ms / 1e9:.2f}")
+                if block is not None:
+                    for key, value in zip(("k", "p", "lib", "bytes", "flops"),
+                                          (k_ms, p_ms, lib_ms, nbytes, flops)):
+                        record[key] += value
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+            del x
+    if failures:
+        fail("K9 disagrees with its plain version or with itself: " + "; ".join(failures))
+    total_bound, bound_by = bound_ms(record["bytes"], record["flops"], "bfloat16")
+    print(f"K9 bf16 bs{EFFNET_BATCH} over B0's nine blocks: kernel_ms={record['k']:.4f} "
+          f"plain_ms={record['p']:.4f} block_eval_forwards_ms={record['lib']:.4f} "
+          f"bound_ms={total_bound:.4f} ({bound_by}: {record['bytes'] / 1e9:.3f} GB, "
+          f"{record['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    return {"name": mb.KERNEL, "route": "cuda",
+            "source": "torchok_tpu_torch/csrc/mbconv_fused_fwd.cu",
+            "replaces": "tools/probe_mbconv_fused.py:81",
+            "launches": 0, "max_abs_err": worst_bf16, "ms": record["k"], "plain_ms": record["p"],
+            "bound_ms": total_bound, "bound_by": bound_by, "library_ms": record["lib"]}
+
+
+def run_mbconv_path(probe, b0, records):
+    """The op path of K9: B0's nine blocks at batch 256 in bf16 through
+    ``mbconv_fused`` with their folded parameters, each held to the block's
+    own eval forward in f32 (2^-7 of its largest output: one bf16 ulp)."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    from torchok_tpu_torch.ops.common import LAUNCHES
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(80)
+    inputs = [probe.make_input(rng, EFFNET_BATCH, hw, cin, device, torch.bfloat16)
+              for _, _, _, (hw, cin, _, _, _) in b0]
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with torch.inference_mode():
+        outs = [mb.mbconv_fused(x, p) for x, (_, _, p, _) in zip(inputs, b0)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for x, y, (name, block, _, (hw, cin, mid, _, k)) in zip(inputs, outs, b0):
+        ref = probe.block_reference(block, x)
+        top = ref.abs().max().item()
+        err = (y.float() - ref).abs().max().item()
+        print(f"mbconv_fused {name} ({EFFNET_BATCH},{hw},{hw},{cin}) mid={mid} k={k} bf16 against "
+              f"the block's f32 eval forward: max_abs_err={err:.3e} "
+              f"(tol {probe.BLOCK_TOLERANCE:g} x {top:.3e})", flush=True)
+        if not (err <= probe.BLOCK_TOLERANCE * top and bool(torch.isfinite(y).all().item())):
+            fail(f"mbconv_fused differs from B0's {name} eval forward: {err:.3e}")
+    require_launches("mbconv_fused op path", counts, {mb.KERNEL: len(b0)})
+    records[mb.KERNEL]["launches"] += counts[mb.KERNEL]
+
+
 def launch_counts():
     from torchok_tpu_torch.ops.common import LAUNCHES
     return {k: v for k, v in LAUNCHES.items() if v}
@@ -1091,7 +1244,7 @@ def run_op_paths(records):
     records[conv_gemm.KERNEL]["launches"] += counts[conv_gemm.KERNEL]
 
 
-def unzero_last_norms(model):
+def unzero_last_norms(model, images):
     """Give every zero-initialised last norm of a ResNet block unit scale, so
     the f32 reference exercises the convs inside the blocks (at the initial
     zero each block is the identity)."""
@@ -1102,10 +1255,31 @@ def unzero_last_norms(model):
                 module.weight.fill_(1.0)
 
 
+def calibrate_norms(model, images):
+    """Give every BatchNorm the statistics of the reference images. At the
+    initial law the eval-mode activations of EfficientNet-B0 and MobileNetV3
+    fade through the blocks (their logits are of order 1e-14 and 1e-9), so
+    the f32 reference would compare zeros; other images' statistics leave
+    logits in the hundreds, where f32 rounding nears the 1e-3 limit."""
+    import torch
+    from torchok_tpu_torch.models.modules.bricks.batchnorm import BatchNorm2d
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    kept = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 0.0  # Flax's momentum, the share kept: the batch's statistics
+    model.train()
+    with torch.no_grad():
+        model({"image": images})
+    model.eval()
+    for m, momentum in zip(norms, kept):
+        m.momentum = momentum
+
+
 def run_slice(label, config, per_forward, records, image_size, prepare_reference=None):
     """The inference slice of one model: ``per_forward`` maps each kernel to
     its launches per forward; ``records`` maps it to its JSON record.
-    ``prepare_reference`` may change the model before the f32 reference run."""
+    ``prepare_reference(model, images)`` may change the model before the f32
+    reference run on ``images``."""
     import numpy as np
     import torch
     from torchok_tpu_torch.__main__ import run
@@ -1153,13 +1327,13 @@ def run_slice(label, config, per_forward, records, image_size, prepare_reference
     # reference on a small input: the same weights in f32, kernels on the
     # card against the plain attention on the CPU
     model = trainer.state.model.float()
-    if prepare_reference is not None:
-        prepare_reference(model)
     image = torch.from_numpy(trainer.task.predict_dataloader()[0].dataset.images[:2])
     if tuple(image.shape[1:3]) != (image_size, image_size):
         fail(f"{label}: images are {tuple(image.shape)}, expected {image_size} px")
     image = (image.float() / 255.0 - 0.45) / 0.225
     batch = {"image": image.permute(0, 3, 1, 2).contiguous()}
+    if prepare_reference is not None:
+        prepare_reference(model, batch["image"].cuda())
     with torch.inference_mode():
         on_card = model({"image": batch["image"].cuda()})["prediction"].cpu()
         on_cpu = model.cpu()({"image": batch["image"]})["prediction"]
@@ -1332,13 +1506,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from torchok_tpu_torch.ops import conv_bn, conv_gemm
+    from torchok_tpu_torch.ops import conv_bn, conv_gemm, mbconv_fused
     from torchok_tpu_torch.ops import swin_attention as swin
     from torchok_tpu_torch.ops import window_attention as wa
     from torchok_tpu_torch.ops import window_attention_dot as dot
     from torchok_tpu_torch.utils.cuda_build import build_log, load_libraries
     kernels = (swin.KERNEL, swin.KERNEL_BWD) + dot.KERNELS + (wa.KERNEL, conv_bn.KERNEL,
-                                                              conv_gemm.KERNEL)
+                                                              conv_gemm.KERNEL,
+                                                              mbconv_fused.KERNEL)
     start = time.perf_counter()
     load_libraries(kernels)
     print(f"built {', '.join(kernels)} side by side in {time.perf_counter() - start:.2f} s",
@@ -1353,9 +1528,14 @@ def main() -> None:
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()
     k6, k7, k8 = check_k6(), check_k7(), check_k8()
-    all_records = (k1, k2, k3a, k3b, k4, k5, k6, k7, k8)
+    mbconv_probe = load_tool("probe_torch_mbconv_fused")
+    b0 = b0_cases(mbconv_probe, torch.device("cuda", 0))
+    k9 = check_k9(mbconv_probe, b0)
+    all_records = (k1, k2, k3a, k3b, k4, k5, k6, k7, k8, k9)
     records = {r["name"]: r for r in all_records}
     run_op_paths(records)
+    run_mbconv_path(mbconv_probe, b0, records)
+    del b0
 
     swin_fwd, swin_bwd = {swin.KERNEL: 12}, {swin.KERNEL_BWD: 12}
     run_slice("swinv2_tiny", SLICE_CONFIG, swin_fwd, records, 256)
@@ -1384,6 +1564,16 @@ def main() -> None:
     print("resnet50: 0 launches of every hand-written kernel in test, predict and train, as "
           "the JAX ResNet calls no Pallas kernel either (K7 and K8 are reached through "
           "their ops above)", flush=True)
+
+    # the JAX EfficientNet and MobileNetV3 reach no Pallas kernel either (K9 is
+    # reached through its op above): every counter stays at 0
+    run_slice("efficientnet_b0", EFFNET_SLICE_CONFIG, {}, records, 224, calibrate_norms)
+    run_train_slice("efficientnet_b0", EFFNET_TRAIN_CONFIG, 224, {}, {},
+                    ("conv_stem.weight", "blocks.5.3.se.fc1.weight", "blocks.6.0.bn3.running_var",
+                     "head"), records)
+    run_slice("mobilenetv3_large_100", MNV3_SLICE_CONFIG, {}, records, 224, calibrate_norms)
+    print("efficientnet_b0 (test, predict, train) and mobilenetv3_large_100 (test): 0 launches "
+          "of every hand-written kernel", flush=True)
 
     print(json.dumps({"kernels": list(all_records)}), flush=True)
     print(card, flush=True)

@@ -443,3 +443,78 @@ def test_conv3x3_gemm_kernel_refuses_what_it_does_not_take(cuda_device):
         conv_gemm.conv3x3_gemm_cuda(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match=r"\(3, 3, Cin, Cout\)"):
         conv_gemm.conv3x3_gemm_cuda(x, w[:2])
+
+
+# ---------------------------------------------------------------------------
+# K9: one inference MBConv block, fused
+# ---------------------------------------------------------------------------
+# (N, H, W, C, mid, rd, k): the probe's two shapes at batch 256 and
+# EfficientNet-B0's nine blocks of the kernel's form (ir, stride 1, C in = C
+# out, SE; rd from C / 4) at batch 8, then ragged and small ones
+MBCONV_SHAPES = {
+    "probe_56": (256, 56, 56, 24, 144, 6, 3), "probe_14": (256, 14, 14, 112, 672, 28, 5),
+    "b0_1_1": (8, 56, 56, 24, 144, 8, 3), "b0_2_1": (8, 28, 28, 40, 240, 16, 5),
+    "b0_3_x": (8, 14, 14, 80, 480, 24, 3), "b0_4_x": (8, 14, 14, 112, 672, 32, 5),
+    "b0_5_x": (8, 7, 7, 192, 1152, 48, 5), "ragged": (3, 9, 13, 24, 40, 6, 5),
+    "k7": (2, 10, 6, 16, 32, 8, 7), "k1": (2, 5, 11, 8, 16, 4, 1),
+}
+
+
+def _mbconv_inputs(device, dtype, n, h, w, c, mid, rd, k, seed=9):
+    rng = np.random.default_rng(seed)
+
+    def g(*shape, scale=0.05):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(
+            device, dtype)
+    x = g(n, h, w, c, scale=0.5)
+    p = dict(w_exp=g(c, mid), s1=1.0 + g(1, mid), b1=g(1, mid), w_dw=g(k, k, mid, scale=0.3),
+             s2=1.0 + g(1, mid), b2=g(1, mid), w_se1=g(mid, rd), b_se1=g(1, rd),
+             w_se2=g(rd, mid), b_se2=g(1, mid), w_proj=g(mid, c), s3=1.0 + g(1, c), b3=g(1, c))
+    return x, p
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(MBCONV_SHAPES))
+def test_mbconv_fused_kernel_matches_plain_and_is_bit_equal_twice(cuda_device, dtype, rel, shape):
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    n, h, w, c, mid, rd, k = MBCONV_SHAPES[shape]
+    if dtype == torch.float32 and n > 8:
+        n = 8  # f32 at the probe's shapes: batch 8, as chip_smoke.py
+    x, p = _mbconv_inputs(cuda_device, dtype, n, h, w, c, mid, rd, k)
+    before = ops.LAUNCHES[mb.KERNEL]
+    got = mb.mbconv_fused(x, p)
+    again = mb.mbconv_fused_cuda(x, p)
+    ref = mb.mbconv_fused_plain(x, p)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[mb.KERNEL] == before + 2
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    # f32 sums in other orders (f32), or one bf16 ulp where the two f32
+    # results fall on either side of a rounding boundary (bf16)
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= rel * top
+
+
+def test_mbconv_fused_kernel_reads_a_channels_last_view(cuda_device):
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    x, p = _mbconv_inputs(cuda_device, torch.bfloat16, 2, 14, 14, 80, 480, 24, 3)
+    nchw = x.permute(0, 3, 1, 2)  # a channels-last NCHW activation
+    assert nchw.is_contiguous(memory_format=torch.channels_last)
+    view = nchw.permute(0, 2, 3, 1)
+    assert view.data_ptr() == x.data_ptr() and view.is_contiguous()
+    assert torch.equal(mb.mbconv_fused_cuda(view, p), mb.mbconv_fused_cuda(x, p))
+
+
+def test_mbconv_fused_kernel_refuses_what_it_does_not_take(cuda_device):
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    x, p = _mbconv_inputs(cuda_device, torch.float32, 2, 8, 8, 16, 48, 8, 3)
+    with pytest.raises(TypeError):
+        mb.mbconv_fused_cuda(x.half(), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        mb.mbconv_fused_cuda(x.transpose(1, 2), p)
+    with pytest.raises(ValueError, match="inference only"):
+        mb.mbconv_fused_cuda(x.clone().requires_grad_(True), p)
+    with pytest.raises(ValueError, match="odd"):
+        mb.mbconv_fused_cuda(x, {**p, "w_dw": torch.zeros((4, 4, 48), device=cuda_device)})

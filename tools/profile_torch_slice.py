@@ -2,12 +2,14 @@
 """Where the device time of the torchok_tpu_torch slices goes, on one NVIDIA
 GPU.
 
-    python tools/profile_torch_slice.py [--model swinv2|gcvit_tiny|davit_t|resnet50]
-        [--mode eval|train] [--batches 3] [--trace PATH]
+    python tools/profile_torch_slice.py [--model swinv2|gcvit_tiny|davit_t|resnet50|
+        efficientnet_b0|mobilenetv3_large_100] [--mode eval|train] [--batches 3] [--trace PATH]
 
 ``--mode eval`` builds the model's inference slice from ``chip_smoke``'s
-config (bs 128, resnet50 bs 256, bf16 autocast; davit_t has a train recipe only, so its eval
-slice is that recipe's validation data) through
+config (bs 128; resnet50, efficientnet_b0 and mobilenetv3_large_100 bs 256;
+bf16 autocast; davit_t and mobilenetv3_large_100 have one recipe only, so
+davit_t's eval slice is its train recipe's validation data and
+mobilenetv3_large_100 has no train slice) through
 ``torchok_tpu_torch.__main__.run`` (one warm-up batch) and profiles the
 trainer's eval loop; ``--mode train`` builds the train slice from
 ``chip_smoke``'s train config (two warm-up steps) and profiles the trainer's
@@ -33,6 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _GLOBAL = r"(<[^>]*(, true|\(bool\)1)>|.*Lb1EEEv)"
 KINDS = [  # first match wins
+    ("K9 mbconv_fused_fwd", r"mbconv_(pass|gate)"),
     ("K2 swin_attention_bwd", r"swin_attention_bwd"),
     ("K1 swin_attention_fwd", r"swin_attention_fwd"),
     # the global and local kernels are instantiations of one template: the
@@ -55,6 +58,7 @@ KINDS = [  # first match wins
     ("GEMM (Linear)", r"gemm|cutlass|nvjet|sm90_xmma|cublas"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
     ("GELU", r"gelu|GeluCUDAKernel"),
+    ("SiLU, hard-swish", r"silu|hardswish|hardsigmoid"),
     ("softmax/sigmoid (cpb bias)", r"softmax|sigmoid"),
     ("roll/pad/cat/copy (incl. H2D)", r"roll|pad|cat|copy|Copy|Memcpy|Memset|index|gather|permute"),
     ("other elementwise", r"elementwise|vectorized|unrolled"),
@@ -71,7 +75,8 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", choices=("swinv2", "gcvit_tiny", "davit_t", "resnet50"),
+    parser.add_argument("--model", choices=("swinv2", "gcvit_tiny", "davit_t", "resnet50",
+                                            "efficientnet_b0", "mobilenetv3_large_100"),
                         default="swinv2")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=3)
@@ -92,11 +97,16 @@ def main() -> None:
     print(chip_smoke.card_line())
     train_config = {"swinv2": chip_smoke.TRAIN_CONFIG, "gcvit_tiny": chip_smoke.GCVIT_TRAIN_CONFIG,
                     "davit_t": chip_smoke.DAVIT_TRAIN_CONFIG,
-                    "resnet50": chip_smoke.RESNET_TRAIN_CONFIG}[args.model]
+                    "resnet50": chip_smoke.RESNET_TRAIN_CONFIG,
+                    "efficientnet_b0": chip_smoke.EFFNET_TRAIN_CONFIG}.get(args.model)
+    if args.mode == "train" and train_config is None:
+        sys.exit(f"profile_torch_slice: {args.model} has no train recipe")
     if args.mode == "eval":
         cfg = {"swinv2": chip_smoke.SLICE_CONFIG,
                "gcvit_tiny": chip_smoke.GCVIT_SLICE_CONFIG,
-               "resnet50": chip_smoke.RESNET_SLICE_CONFIG}.get(args.model)
+               "resnet50": chip_smoke.RESNET_SLICE_CONFIG,
+               "efficientnet_b0": chip_smoke.EFFNET_SLICE_CONFIG,
+               "mobilenetv3_large_100": chip_smoke.MNV3_SLICE_CONFIG}.get(args.model)
         if cfg is None:
             cfg = {k: v for k, v in train_config.items()
                    if k not in ("joint_loss", "optimization", "data")}
@@ -164,7 +174,7 @@ def main() -> None:
         by_kind[kind_of(name)] += us
 
     n = args.batches
-    batch_size = train_config["data"]["TRAIN"][0]["dataloader"]["batch_size"]
+    batch_size = (cfg["data"].get("TRAIN") or cfg["data"]["TEST"])[0]["dataloader"]["batch_size"]
     print(f"{args.model} {args.mode} loop: {n} batches of {batch_size}, wall {wall_ms:.3f} ms "
           f"(profiler on), "
           f"kernel time {total_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "

@@ -1,1 +1,2 @@
-from torchok_tpu_torch.models.backbones import davit, gcvit, resnet, swin  # noqa: F401
+from torchok_tpu_torch.models.backbones import (davit, efficientnet, gcvit, mobilenetv3,  # noqa: F401
+                                              resnet, swin)

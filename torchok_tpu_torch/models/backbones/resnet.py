@@ -38,6 +38,34 @@ from torchok_tpu_torch.ops.image import avg_pool, blur_pool, max_pool
 _TRUNC_STD = 0.87962566103423978
 
 
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initial law for its conv nets, drawn from
+    ``generator``: conv kernels variance scaling 2.0 over fan_out with a
+    truncated normal, SE and ECA convs LeCun normal with zero biases (Flax's
+    default), norms at one and zero (at zero where built ``zero_init``),
+    running statistics at zero and one."""
+    attn_convs = {id(m) for mod in model.modules() if isinstance(mod, (SEModule, EcaModule))
+                  for m in mod.modules() if isinstance(m, (nn.Conv1d, nn.Conv2d))}
+    for m in model.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            receptive = math.prod(m.kernel_size)
+            if id(m) in attn_convs:
+                fan = m.in_channels // m.groups * receptive
+                std = math.sqrt(1.0 / fan) / _TRUNC_STD
+            else:
+                fan = m.out_channels * receptive
+                std = math.sqrt(2.0 / fan) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, nn.GroupNorm):
+            nn.init.constant_(m.weight, 0.0 if getattr(m, "zero_init", False) else 1.0)
+            nn.init.zeros_(m.bias)
+
+
 def _norm(kind: str, channels: int, zero_init: bool = False) -> nn.Module:
     """'bn' (default) or 'gn' (resnet*_gn variants: GroupNorm(32))."""
     if kind == "gn":
@@ -310,31 +338,9 @@ class ResNet(BaseBackbone):
         return prefixes
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX package's initial law, drawn from ``generator``: conv
-        kernels variance scaling 2.0 over fan_out with a truncated normal, SE
-        and ECA convs LeCun normal with zero biases (Flax's default), norms at
-        one and zero, the last norm of each block at zero with
-        ``zero_init_last``, running statistics at zero and one."""
-        attn_convs = {id(m) for mod in self.modules() if isinstance(mod, (SEModule, EcaModule))
-                      for m in mod.modules() if isinstance(m, (nn.Conv1d, nn.Conv2d))}
-        for m in self.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-                receptive = math.prod(m.kernel_size)
-                if id(m) in attn_convs:
-                    fan = m.in_channels // m.groups * receptive
-                    std = math.sqrt(1.0 / fan) / _TRUNC_STD
-                else:
-                    fan = m.out_channels * receptive
-                    std = math.sqrt(2.0 / fan) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, BatchNorm2d):
-                m.reset_parameters()
-            elif isinstance(m, nn.GroupNorm):
-                nn.init.constant_(m.weight, 0.0 if getattr(m, "zero_init", False) else 1.0)
-                nn.init.zeros_(m.bias)
+        """The JAX package's initial law (:func:`init_like_flax`), the last
+        norm of each block at zero with ``zero_init_last``."""
+        init_like_flax(self, generator)
 
 
 _B, _BT = "basic", "bottleneck"

@@ -25,16 +25,18 @@ modules use the timm or reference key names.
   ``layer1.0``, the deep stem's ``conv1_k``/``bn1_k`` -> ``conv1.{3k}``/
   ``conv1.{3k+1}``, ``stem_pool_conv``/``stem_pool_bn`` -> ``maxpool.0``/
   ``maxpool.1``, ``downsample/conv``/``downsample/bn`` -> ``downsample.0``/
-  ``.1``, or ``.1``/``.2`` where the registry entry has ``avg_down``).
+  ``.1``, or ``.1``/``.2`` where the registry entry has ``avg_down``; the
+  EfficientNet and MobileNetV3 families: ``blocks_2_1`` -> ``blocks.2.1``).
   Depthwise and 1x1 conv kernels take the same HWIO -> OIHW rule;
   ``relative_position_bias_table`` and ``gamma`` carry over as they are.
 
-The transformer families have ``params`` only; the ResNet family also has
-``batch_stats``, and both collections carry over. ``task_name_map`` gives the
-same correspondence by name (port key -> Flax path) for one collection and
-``state_dict_to_task_flax`` carries a port ``state_dict`` back into the Flax
-tree of that collection, so parameters, gradients and running statistics can
-be compared leaf by leaf after training in either package.
+The transformer families have ``params`` only; the ResNet, EfficientNet and
+MobileNetV3 families also have ``batch_stats``, and both collections carry
+over. ``task_name_map`` gives the same correspondence by name (port key ->
+Flax path) for one collection and ``state_dict_to_task_flax`` carries a port
+``state_dict`` back into the Flax tree of that collection, so parameters,
+gradients and running statistics can be compared leaf by leaf after training
+in either package.
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ import numpy as np
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 COLLECTIONS = ("params", "batch_stats")
 _RESNET = r"^(resnet|resnext|seresne|ecaresne|senet|wide_resnet|(tv|ssl|swsl|ig)_resne)"
+# the EfficientNet and MobileNetV3 families (torchok_tpu.utils.torch_convert's
+# two family patterns, copied)
+_EFFICIENTNET = (r"^(efficientnet|tf_efficientnet|mnasnet|semnasnet|mobilenetv2|mixnet|"
+                 r"tinynet|tf_mixnet|spnasnet|fbnetc|eca_efficientnet|gc_efficientnet)")
+_MOBILENETV3 = r"^(mobilenetv3|tf_mobilenetv3|fbnetv3|lcnet|tf_lcnet)"
 
 
 def _swin_path(parts: List[str]) -> List[str]:
@@ -115,6 +122,16 @@ def _resnet_path(avg_down: bool) -> Callable[[List[str]], List[str]]:
     return mapper
 
 
+def _efficientnet_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for p in parts:
+        if (m := re.fullmatch(r"blocks_(\d+)_(\d+)", p)):
+            out += ["blocks", m[1], m[2]]
+        else:
+            out.append(p)
+    return out
+
+
 def _plain_path(parts: List[str]) -> List[str]:
     return list(parts)
 
@@ -123,6 +140,8 @@ _FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
     (r"^swinv2", _swin_path),
     (r"^gcvit", _gcvit_path),
     (r"^davit", _davit_path),
+    (_EFFICIENTNET, _efficientnet_path),
+    (_MOBILENETV3, _efficientnet_path),
 ]
 
 
