@@ -13,10 +13,12 @@
    kernel its forward + backward) with CUDA events (median after warm-up),
    beside the bound from the bytes each must move and the operations it does:
    * K1/K2 (SwinV2 cosine attention, forward/backward) at each stage shape of
-     swinv2_tiny_window8_256, batch 8 in f32 (TF32 off) and bf16 and batch
-     128 in bf16. K1: max abs error <= 1e-4 in f32, <= 2e-2 in bf16. K2:
-     dqkv, dbias and dscale each within a stated fraction of the reference's
-     largest magnitude, bit-equal between two launches.
+     four SwinV2 models (``SWIN_MODELS``: windows 8; 16 and 8; 12 and 6; 24
+     and 12, so L = 36 to 576, 576 on the key-tiled path), batch 8 in f32
+     (TF32 off) and each model's batch (128; 32 at 384x384) in bf16. K1: max
+     abs error <= 1e-4 in f32, <= 2e-2 in bf16. K2: dqkv, dbias and dscale
+     each within a stated fraction of the reference's largest magnitude,
+     bit-equal between two launches.
    * K3a/K3b (plain window attention, forward/backward) at gcvit_tiny's four
      local shapes (windows 7/7/14/7, with the bias) and davit_t's four
      (window 7, no bias); K4/K5 (global-query attention, forward/backward)
@@ -32,8 +34,10 @@
      within rtol 1e-4 plus an atol that grows with sqrt(M) (ulp flips and
      summation order are a random walk over the rows); bit-equal twice.
    * K8 (3x3 conv as an implicit GEMM) at ResNet-50's four 3x3 shapes at
-     batch 256 in bf16, batch 8 in f32 and one odd size, same y tolerances;
-     its library call is ``F.conv2d`` on channels-last bf16.
+     batch 256 in bf16 (its wgmma loop: the script first prints ``K8 SASS
+     has HGMMA: true`` from ``cuobjdump -sass`` of the built library), batch
+     8 in f32, odd sizes, a ragged M and Cout 64 and 512, same y tolerances,
+     bit-equal twice; its library call is ``F.conv2d`` on channels-last bf16.
    * K9 (one inference MBConv block, fused) at the JAX probe's two shapes
      and EfficientNet-B0's nine blocks of its form (BatchNorms folded, eps
      1e-3), batch 8 in f32 (<= 1e-4 of the largest |y|) and batch 256 in
@@ -56,14 +60,19 @@
    bf16 autocast, random weights from the seed. The
    launch counters are zeroed just before each run and read just after; the
    counts must be exactly the expected kernel launches and no plain call:
-   * inference (``SLICE_CONFIG`` swinv2_tiny 256x256, ``GCVIT_SLICE_CONFIG``
-     gcvit_tiny 224x224), 3 batches in modes test and predict: 12 K1, or
-     17 K3a + 14 K4, per batch; finite logits, Accuracy and F1Score reported,
-     and the model in f32 on the card within 1e-3 of its CPU run (plain
-     attention) on two images;
-   * training (``TRAIN_CONFIG``, ``GCVIT_TRAIN_CONFIG``, ``DAVIT_TRAIN_CONFIG``
-     with the train set cut to one batch repeated for 10 one-step epochs, one
-     sanity and one final validation batch): per step 12 K1 + 12 K2, or
+   * inference (``SLICE_CONFIG`` swinv2_tiny 256x256, ``WINDOW16_SLICE_CONFIG``
+     swinv2_tiny_window16 256x256, ``BASE384_SLICE_CONFIG``
+     swinv2_base_window12to24 384x384 at batch 32, ``GCVIT_SLICE_CONFIG``
+     gcvit_tiny 224x224), 3 batches in modes test and predict: 12 K1, 12 K1,
+     24 K1 (22 at L = 576), or 17 K3a + 14 K4, per batch; finite logits,
+     Accuracy and F1Score reported, and the model in f32 on the card within
+     1e-3 of its CPU run (plain attention) on two images;
+   * every registered SwinV2 variant (twelve) at batch 1 at its own input
+     size: one K1 launch per block, no plain call, finite features;
+   * training (``TRAIN_CONFIG``, ``WINDOW16_TRAIN_CONFIG``,
+     ``GCVIT_TRAIN_CONFIG``, ``DAVIT_TRAIN_CONFIG`` with the train set cut to
+     one batch repeated for 10 one-step epochs, one sanity and one final
+     validation batch): per step 12 K1 + 12 K2 (both SwinV2s), or
      17 K3a + 14 K4 + 17 K3b + 14 K5, or 6 K3a + 6 K3b (davit_t); every loss
      finite and the last below the first; the validation metrics reported;
      every parameter finite and the named ones moved;
@@ -78,10 +87,12 @@
      (``MNV3_SLICE_CONFIG``) in mode test, 224x224, batch 256, the same way:
      the JAX EfficientNet and MobileNetV3 reach no Pallas kernel, so every
      counter stays at 0;
-   * one f32 forward + backward of swinv2_tiny and of gcvit_tiny on two images
-     on the card (kernels) against the CPU (plain versions), over all
-     parameter gradients, within 1e-3 of the largest gradient.
-6. Prints ``{"kernels": [...]}`` (K1 to K9; the K3 to K5 times are summed
+   * one f32 forward + backward of swinv2_tiny (windows 8 and 16) and of
+     gcvit_tiny on two images on the card (kernels) against the CPU (plain
+     versions), over all parameter gradients, within 1e-3 of the largest
+     gradient.
+6. Prints ``{"kernels": [...]}`` (K1 to K9; K1/K2's times are summed over
+   one swinv2_tiny_window8 forward or backward, as before the other windows ran, the K3 to K5 times
    over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
    K7's over the chain's forward, K8's over its four shapes, K9's over B0's
    nine blocks), the card line,
@@ -163,6 +174,9 @@ def train_config(backbone, size, batch=128, **backbone_params):
 
 SLICE_CONFIG = slice_config("swinv2_tiny_window8_256", 256)
 TRAIN_CONFIG = train_config("swinv2_tiny_window8_256", 256)
+WINDOW16_SLICE_CONFIG = slice_config("swinv2_tiny_window16_256", 256)
+WINDOW16_TRAIN_CONFIG = train_config("swinv2_tiny_window16_256", 256)
+BASE384_SLICE_CONFIG = slice_config("swinv2_base_window12to24_192to384_22kft1k", 384, batch=32)
 GCVIT_SLICE_CONFIG = slice_config("gcvit_tiny", 224, img_size=224)
 GCVIT_TRAIN_CONFIG = train_config("gcvit_tiny", 224, img_size=224)
 DAVIT_TRAIN_CONFIG = train_config("davit_t", 224)
@@ -176,6 +190,23 @@ BATCHES = 3
 BLOCKS = (2, 2, 6, 2)  # SwinBlocks per stage of swinv2_tiny
 # (Hp, Wp, C, heads) of each stage at 256x256 input; window 8, head dim 32
 STAGES = ((64, 64, 96, 3), (32, 32, 192, 6), (16, 16, 384, 12), (8, 8, 768, 24))
+# SwinV2 models whose K1/K2 are held and timed at their stage shapes: (batch,
+# stages of (Hp, Wp, C, heads, ws, blocks)) at each model's input size (256,
+# 256, 192, 384); a window shrinks to a map no larger than it. L = ws * ws:
+# 64; 256 and 64; 144 and 36; 576 (the key-tiled path) and 144.
+SWIN_MODELS = {
+    "swinv2_tiny_window8_256": (128, ((64, 64, 96, 3, 8, 2), (32, 32, 192, 6, 8, 2),
+                                      (16, 16, 384, 12, 8, 6), (8, 8, 768, 24, 8, 2))),
+    "swinv2_tiny_window16_256": (128, ((64, 64, 96, 3, 16, 2), (32, 32, 192, 6, 16, 2),
+                                       (16, 16, 384, 12, 16, 6), (8, 8, 768, 24, 8, 2))),
+    "swinv2_base_window12_192_22k": (128, ((48, 48, 128, 4, 12, 2), (24, 24, 256, 8, 12, 2),
+                                           (12, 12, 512, 16, 12, 18), (6, 6, 1024, 32, 6, 2))),
+    "swinv2_base_window12to24_192to384_22kft1k": (32, ((96, 96, 128, 4, 24, 2),
+                                                       (48, 48, 256, 8, 24, 2),
+                                                       (24, 24, 512, 16, 24, 18),
+                                                       (12, 12, 1024, 32, 12, 2))),
+}
+RECORD_MODEL = "swinv2_tiny_window8_256"  # K1/K2's JSON records sum its blocks
 CHECK_BATCH = 8
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 # K2's tolerances are relative to the largest magnitude of the reference
@@ -237,21 +268,22 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attention_inputs(b, hp, wp, c, heads, dtype, masked, seed):
+def attention_inputs(b, hp, wp, c, heads, ws, dtype, masked, seed):
     import torch
     from torchok_tpu_torch.models.backbones.swin import shift_window_mask
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     dev = torch.device("cuda", 0)
+    L = ws * ws
     qkv = (0.5 * torch.randn((b, hp, wp, 3 * c), generator=g, device=dev)).to(dtype)
     logit_scale = math.log(10.0) + 0.5 * torch.randn((heads,), generator=g, device=dev)
     scale = torch.exp(torch.clamp(logit_scale, max=math.log(100.0)))
-    bias = 16 * torch.sigmoid(torch.randn((heads, 64, 64), generator=g, device=dev))
-    mask = shift_window_mask(hp, wp, 8, 4).to(dev) if masked else None
+    bias = 16 * torch.sigmoid(torch.randn((heads, L, L), generator=g, device=dev))
+    mask = shift_window_mask(hp, wp, ws, ws // 2).to(dev) if masked else None
     return qkv, scale, bias, mask
 
 
-def sdpa_inputs(qkv, scale, bias, mask, heads):
+def sdpa_inputs(qkv, scale, bias, mask, heads, ws):
     """The closest single library call, on what it needs prepared: windows
     already partitioned, q and k already normalised, q already scaled, and
     bias (+ mask) as one additive ``attn_mask``. The (window, head) pairs
@@ -259,7 +291,7 @@ def sdpa_inputs(qkv, scale, bias, mask, heads):
     import torch
     import torch.nn.functional as F
     from torchok_tpu_torch.ops.swin_attention import to_windows
-    q, k, v = to_windows(qkv, 8, 3, heads)  # (B, H, nW, L, D)
+    q, k, v = to_windows(qkv, ws, 3, heads)  # (B, H, nW, L, D)
     q = F.normalize(q.float(), dim=-1) * scale.view(1, heads, 1, 1, 1)
     k = F.normalize(k.float(), dim=-1)
     b, _, nw, L, d = q.shape
@@ -271,15 +303,15 @@ def sdpa_inputs(qkv, scale, bias, mask, heads):
     return q, k, v, attn
 
 
-def attention_cost(b, hp, wp, c, heads, itemsize, backward, masked):
+def attention_cost(b, hp, wp, c, heads, ws, itemsize, backward, masked):
     """Bytes the function must move (each input read once, each output
     written once) and the operations of its products on these inputs."""
-    tokens = b * hp * wp
-    small = 4 * (heads + heads * 64 * 64 + (hp // 8) * (wp // 8) * 64 * 64 * masked)
+    tokens, L = b * hp * wp, ws * ws
+    small = 4 * (heads + heads * L * L + (hp // ws) * (wp // ws) * L * L * masked)
     if backward:  # qkv and dout in, dqkv out, dbias and dscale out; five products
-        return 7 * c * itemsize * tokens + small + 4 * (heads * 64 * 64 + heads), \
-            5 * 2 * tokens * 64 * c
-    return 4 * c * itemsize * tokens + small, 2 * 2 * tokens * 64 * c
+        return 7 * c * itemsize * tokens + small + 4 * (heads * L * L + heads), \
+            5 * 2 * tokens * L * c
+    return 4 * c * itemsize * tokens + small, 2 * 2 * tokens * L * c
 
 
 # published dense peaks of the H100 SXM: device memory 3.35 TB/s; 989 TFLOP/s
@@ -301,177 +333,129 @@ def shape_cases(batch):
             yield stage, (hp, wp, c, heads), masked, depth // 2 if hp > 8 else depth
 
 
-def check_k1():
-    """K1 against its plain version at every stage shape; returns the JSON
-    record for the kernel."""
+def swin_cases(model):
+    """(stage, (hp, wp, c, heads, ws), masked, blocks of that kind per
+    forward) of one SwinV2 model: a stage whose map is larger than its
+    window shifts every other block."""
+    _, stages = SWIN_MODELS[model]
+    for stage, (hp, wp, c, heads, ws, depth) in enumerate(stages, 1):
+        shifted = hp > ws
+        for masked in ((False, True) if shifted else (False,)):
+            yield stage, (hp, wp, c, heads, ws), masked, depth // 2 if shifted else depth
+
+
+def check_swin(backward: bool):
+    """K1 (``backward`` False) or K2 against its plain version at every stage
+    shape of the SwinV2 models of ``SWIN_MODELS`` (windows 6 to 24, L 36 to
+    576), batch 8 in f32 (TF32 off) and each model's batch in bf16, K2 twice
+    for bit equality; at the model's batch the kernel, the plain version and
+    SDPA are timed beside the bound. Prints the sums over each model's
+    forward (K1) or backward (K2); the record sums swinv2_tiny_window8_256's,
+    as before the other windows ran."""
     import torch
     import torch.nn.functional as F
     from torchok_tpu_torch.ops import swin_attention as ops
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    failures = []
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
-        for stage, (hp, wp, c, heads), masked, _ in shape_cases(CHECK_BATCH):
-            args = attention_inputs(CHECK_BATCH, hp, wp, c, heads, dtype, masked, stage)
-            got = ops.swin_attention_fwd_cuda(*args, 8, heads)
-            ref = ops.swin_attention_fwd_plain(*args, 8, heads)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            finite = bool(torch.isfinite(got).all().item())
-            k_ms = median_ms(lambda: ops.swin_attention_fwd_cuda(*args, 8, heads), TIMING_ITERS_SMALL)
-            p_ms = median_ms(lambda: ops.swin_attention_fwd_plain(*args, 8, heads), TIMING_ITERS_SMALL)
-            worst[name] = max(worst[name], err)
-            print(f"K1 {name} stage{stage} qkv=({CHECK_BATCH},{hp},{wp},{3 * c}) "
-                  f"heads={heads} mask={masked}: max_abs_err={err:.3e} "
-                  f"(tol {TOLERANCE[name]:g}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}",
-                  flush=True)
-            if not finite or not err <= TOLERANCE[name]:
-                failures.append(f"{name} stage{stage} mask={masked}: err {err:.3e}")
-
-    # the slice's own shapes: bf16, batch 128, every block of a forward
-    batch = SLICE_CONFIG["data"]["TEST"][0]["dataloader"]["batch_size"]
-    total_k = total_p = total_lib = total_bound = 0.0
-    total_bytes = total_flops = 0
-    for stage, (hp, wp, c, heads), masked, n in shape_cases(batch):
-        args = attention_inputs(batch, hp, wp, c, heads, torch.bfloat16, masked, 10 + stage)
-        got = ops.swin_attention_fwd_cuda(*args, 8, heads)
-        ref = ops.swin_attention_fwd_plain(*args, 8, heads)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(got).all().item())
-        del got, ref
-        k_ms = median_ms(lambda: ops.swin_attention_fwd_cuda(*args, 8, heads))
-        p_ms = median_ms(lambda: ops.swin_attention_fwd_plain(*args, 8, heads))
-        q, k, v, attn = sdpa_inputs(*args, heads)
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn, scale=1.0))
-        del q, k, v, attn
-        nbytes, flops = attention_cost(batch, hp, wp, c, heads, 2, False, masked)
-        b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        worst["bfloat16"] = max(worst["bfloat16"], err)
-        total_k += n * k_ms
-        total_p += n * p_ms
-        total_lib += n * lib_ms
-        total_bytes += n * nbytes
-        total_flops += n * flops
-        print(f"K1 bfloat16 bs{batch} stage{stage} qkv=({batch},{hp},{wp},{3 * c}) "
-              f"heads={heads} mask={masked} x{n} blocks: max_abs_err={err:.3e} "
-              f"(tol {TOLERANCE['bfloat16']:g}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f}", flush=True)
-        if not finite or not err <= TOLERANCE["bfloat16"]:
-            failures.append(f"bfloat16 bs{batch} stage{stage} mask={masked}: err {err:.3e}")
-    if failures:
-        fail("K1 disagrees with its plain version: " + "; ".join(failures))
-    total_bound, bound_by = bound_ms(total_bytes, total_flops, "bfloat16")
-    print(f"K1 bf16 bs{batch} per forward (12 blocks): kernel_ms={total_k:.4f} "
-          f"plain_ms={total_p:.4f} sdpa_ms={total_lib:.4f} bound_ms={total_bound:.4f} "
-          f"({bound_by}: {total_bytes / 1e9:.3f} GB, {total_flops / 1e9:.1f} GFLOP)", flush=True)
-    return {"name": ops.KERNEL, "route": "cuda",
-            "source": "torchok_tpu_torch/csrc/swin_attention_fwd.cu",
-            "replaces": "torchok_tpu/ops/swin_attention.py:93",
-            "launches": 0, "max_abs_err": worst["bfloat16"],
-            "ms": total_k, "plain_ms": total_p, "bound_ms": total_bound,
-            "bound_by": bound_by, "library_ms": total_lib}
-
-
-def backward_errors(got, ref):
-    """Per output (dqkv, dbias, dscale): max abs error and the reference's
-    max magnitude."""
-    out = []
-    for g, r in zip(got, ref):
-        out.append(((g.float() - r.float()).abs().max().item(), r.float().abs().max().item()))
-    return out
-
-
-def check_k2(timing: bool = True):
-    """K2 against its plain version at every stage shape, twice for bit
-    equality; returns the JSON record for the kernel."""
-    import torch
-    import torch.nn.functional as F
-    from torchok_tpu_torch.ops import swin_attention as ops
+    kind = "K2" if backward else "K1"
     names = ("dqkv", "dbias", "dscale")
     failures = []
     worst_bf16 = 0.0
+    sums = {}
 
-    def one(label, batch, stage, hp, wp, c, heads, dtype, masked, seed):
-        nonlocal worst_bf16
-        name = str(dtype).split(".")[-1]
-        args = attention_inputs(batch, hp, wp, c, heads, dtype, masked, seed)
-        g = torch.Generator(device="cuda")
-        g.manual_seed(100 + seed)
-        dout = torch.randn((batch, hp, wp, c), generator=g, device="cuda").to(dtype)
-        got = ops.swin_attention_bwd_cuda(*args, dout, 8, heads)
-        again = ops.swin_attention_bwd_cuda(*args, dout, 8, heads)
-        ref = ops.swin_attention_bwd_plain(*args, dout, 8, heads)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        finite = all(bool(torch.isfinite(t).all().item()) for t in got)
-        parts = []
-        ok = same and finite
-        for key, (err, mag) in zip(names, backward_errors(got, ref)):
-            rel = K2_TOLERANCE[name][key]
-            ok = ok and err <= rel * mag
-            parts.append(f"{key} err={err:.3e} (tol {rel:g} x max|ref| {mag:.3e})")
-            if key == "dqkv" and name == "bfloat16":
-                worst_bf16 = max(worst_bf16, err)
-        del got, again, ref
-        line = (f"K2 {name} {label} stage{stage} qkv=({batch},{hp},{wp},{3 * c}) heads={heads} "
-                f"mask={masked}: " + ", ".join(parts) + f", bit-equal twice={same}")
-        times = None
-        if timing:
-            iters = TIMING_ITERS if batch > CHECK_BATCH else TIMING_ITERS_SMALL
-            k_ms = median_ms(lambda: ops.swin_attention_bwd_cuda(*args, dout, 8, heads), iters)
-            p_ms = median_ms(lambda: ops.swin_attention_bwd_plain(*args, dout, 8, heads), iters)
-            line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
-            times = (k_ms, p_ms)
-        print(line, flush=True)
-        if not ok:
-            failures.append(line)
-        return args, dout, times
+    def run(fn, args, dout, ws, heads):
+        return fn(*args, dout, ws, heads) if backward else (fn(*args, ws, heads),)
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for stage, (hp, wp, c, heads), masked, _ in shape_cases(CHECK_BATCH):
-            one(f"B{CHECK_BATCH}", CHECK_BATCH, stage, hp, wp, c, heads, dtype, masked, stage)
+    kernel = ops.swin_attention_bwd_cuda if backward else ops.swin_attention_fwd_cuda
+    plain = ops.swin_attention_bwd_plain if backward else ops.swin_attention_fwd_plain
+    for model, (batch, _) in SWIN_MODELS.items():
+        total = sums.setdefault(model, {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0,
+                                        "n": 0})
+        for dtype, b in ((torch.float32, CHECK_BATCH), (torch.bfloat16, batch)):
+            name = dtype_name(dtype)
+            for stage, (hp, wp, c, heads, ws), masked, n in swin_cases(model):
+                seed = 10 * stage + masked + (0 if b == CHECK_BATCH else 100)
+                args = attention_inputs(b, hp, wp, c, heads, ws, dtype, masked, seed)
+                g = torch.Generator(device="cuda")
+                g.manual_seed(1000 + seed)
+                dout = torch.randn((b, hp, wp, c), generator=g, device="cuda").to(dtype)
+                got = run(kernel, args, dout, ws, heads)
+                again = run(kernel, args, dout, ws, heads) if backward else got
+                ref = run(plain, args, dout, ws, heads)
+                torch.cuda.synchronize()
+                ok = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+                ok = ok and all(bool(torch.isfinite(t).all().item()) for t in got)
+                parts = []
+                for key, g_, r_ in zip(names if backward else ("out",), got, ref):
+                    err = (g_.float() - r_.float()).abs().max().item()
+                    if backward:
+                        rel = K2_TOLERANCE[name][key]
+                        mag = r_.float().abs().max().item()
+                        ok = ok and err <= rel * mag
+                        parts.append(f"{key} err={err:.3e} (tol {rel:g} x max|ref| {mag:.3e})")
+                    else:
+                        ok = ok and err <= TOLERANCE[name]
+                        parts.append(f"max_abs_err={err:.3e} (tol {TOLERANCE[name]:g})")
+                    if name == "bfloat16" and key in ("out", "dqkv"):
+                        worst_bf16 = max(worst_bf16, err)
+                del got, again, ref
+                line = (f"{kind} {name} {model} B{b} stage{stage} qkv=({b},{hp},{wp},{3 * c}) "
+                        f"heads={heads} ws={ws} L={ws * ws} mask={masked} x{n}: "
+                        + ", ".join(parts) + (", bit-equal twice" if backward else ""))
+                if b == batch:
+                    k_ms = median_ms(lambda: run(kernel, args, dout, ws, heads), TIMING_ITERS)
+                    p_ms = median_ms(lambda: run(plain, args, dout, ws, heads),
+                                     TIMING_ITERS_SMALL)
+                    q, k, v, attn = sdpa_inputs(*args, heads, ws)
+                    if backward:
+                        for t in (q, k, v):
+                            t.requires_grad_(True)
+                        dwin = torch.randn_like(q)
 
-    batch = TRAIN_CONFIG["data"]["TRAIN"][0]["dataloader"]["batch_size"]
-    total_k = total_p = total_lib = 0.0
-    total_bytes = total_flops = 0
-    for stage, (hp, wp, c, heads), masked, n in shape_cases(batch):
-        args, dout, times = one(f"bs{batch} x{n} blocks", batch, stage, hp, wp, c, heads,
-                                torch.bfloat16, masked, 10 + stage)
-        nbytes, flops = attention_cost(batch, hp, wp, c, heads, 2, True, masked)
-        total_bytes += n * nbytes
-        total_flops += n * flops
-        if timing:
-            q, k, v, attn = sdpa_inputs(*args, heads)
-            for t in (q, k, v):
-                t.requires_grad_(True)
-            dwin = torch.randn_like(q)
-
-            def library_fwd_bwd():
-                out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn, scale=1.0)
-                torch.autograd.grad(out, (q, k, v), dwin)
-
-            lib_ms = median_ms(library_fwd_bwd)
-            b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-            print(f"K2 bfloat16 bs{batch} stage{stage} mask={masked}: sdpa fwd+bwd "
-                  f"ms={lib_ms:.4f} bound_ms={b_ms:.4f}", flush=True)
-            total_k += n * times[0]
-            total_p += n * times[1]
-            total_lib += n * lib_ms
-            del q, k, v, attn, dwin
-        del args, dout
+                        def library():
+                            out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn,
+                                                                 scale=1.0)
+                            torch.autograd.grad(out, (q, k, v), dwin)
+                    else:
+                        def library():
+                            F.scaled_dot_product_attention(q, k, v, attn_mask=attn, scale=1.0)
+                    lib_ms = median_ms(library, TIMING_ITERS_SMALL)
+                    del q, k, v, attn
+                    nbytes, flops = attention_cost(b, hp, wp, c, heads, ws, 2, backward, masked)
+                    b_ms, by = bound_ms(nbytes, flops, "bfloat16")
+                    line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                             f"sdpa{'_fwd_bwd' if backward else ''}_ms={lib_ms:.4f} "
+                             f"bound_ms={b_ms:.4f} ({by})")
+                    for key, value in (("k", k_ms), ("p", p_ms), ("lib", lib_ms),
+                                       ("bytes", nbytes), ("flops", flops), ("n", 1)):
+                        total[key] += n * value
+                print(line, flush=True)
+                if not ok:
+                    failures.append(line)
+                del args, dout
     if failures:
-        fail("K2 disagrees with its plain version or with itself: " + "; ".join(failures))
-    total_bound, bound_by = bound_ms(total_bytes, total_flops, "bfloat16")
-    print(f"K2 bf16 bs{batch} per backward (12 blocks): kernel_ms={total_k:.4f} "
-          f"plain_ms={total_p:.4f} sdpa_fwd_bwd_ms={total_lib:.4f} bound_ms={total_bound:.4f} "
-          f"({bound_by}: {total_bytes / 1e9:.3f} GB, {total_flops / 1e9:.1f} GFLOP)", flush=True)
-    return {"name": ops.KERNEL_BWD, "route": "cuda",
-            "source": "torchok_tpu_torch/csrc/swin_attention_bwd.cu",
-            "replaces": "torchok_tpu/ops/swin_attention.py:159",
+        fail(f"{kind} disagrees with its plain version or with itself: " + "; ".join(failures))
+    for model, t in sums.items():
+        b_ms, by = bound_ms(t["bytes"], t["flops"], "bfloat16")
+        print(f"{kind} bf16 bs{SWIN_MODELS[model][0]} per {'backward' if backward else 'forward'}"
+              f" of {model} ({t['n']} blocks): kernel_ms={t['k']:.4f} plain_ms={t['p']:.4f} "
+              f"sdpa{'_fwd_bwd' if backward else ''}_ms={t['lib']:.4f} bound_ms={b_ms:.4f} "
+              f"({by}: {t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    t = sums[RECORD_MODEL]
+    total_bound, bound_by = bound_ms(t["bytes"], t["flops"], "bfloat16")
+    source = ops.KERNEL_BWD if backward else ops.KERNEL
+    return {"name": source, "route": "cuda",
+            "source": f"torchok_tpu_torch/csrc/{source}.cu",
+            "replaces": f"torchok_tpu/ops/swin_attention.py:{159 if backward else 93}",
             "launches": 0, "max_abs_err": worst_bf16,
-            "ms": total_k, "plain_ms": total_p, "bound_ms": total_bound,
-            "bound_by": bound_by, "library_ms": total_lib if timing else None}
+            "ms": t["k"], "plain_ms": t["p"], "bound_ms": total_bound,
+            "bound_by": bound_by, "library_ms": t["lib"]}
+
+
+def check_k1():
+    return check_swin(False)
+
+
+def check_k2():
+    return check_swin(True)
 
 
 def dot_inputs(b, hp, wp, c, heads, ws, dtype, parts, with_bias, seed):
@@ -925,8 +909,9 @@ def conv_cost(n, h, w_, cin, cout, itemsize):
 
 
 def check_k8():
-    """K8 against its plain version; the record sums the four ResNet-50
-    shapes at batch 256."""
+    """K8 against its plain version (bf16: its wgmma loop, bit-equal twice;
+    a ragged M and Cout 64 and 512 besides ResNet-50's shapes); the record
+    sums the four ResNet-50 shapes at batch 256."""
     import torch
     import torch.nn.functional as F
     from torchok_tpu_torch.ops import conv_gemm
@@ -936,21 +921,27 @@ def check_k8():
     cases = [(f"B{CHECK_BATCH}", (CHECK_BATCH, hw, hw, c, c), torch.float32, False)
              for hw, c in CONV_SHAPES]
     cases += [("odd", (5, 9, 11, 24, 40), torch.float32, False),
-              ("odd", (5, 9, 11, 24, 40), torch.bfloat16, False)]
+              ("odd", (5, 9, 11, 24, 40), torch.bfloat16, False),
+              ("ragged M", (3, 13, 11, 64, 128), torch.bfloat16, False),
+              ("Cout 64", (2, 10, 10, 128, 64), torch.bfloat16, False),
+              ("Cout 512", (2, 7, 7, 256, 512), torch.bfloat16, False)]
     cases += [(f"bs{RESNET_BATCH}", (RESNET_BATCH, hw, hw, c, c), torch.bfloat16, True)
               for hw, c in CONV_SHAPES]
     for idx, (label, shape, dtype, counts) in enumerate(cases):
         name = dtype_name(dtype)
         x, w = conv_inputs(*shape, dtype, 40 + idx)
         got = conv_gemm.conv3x3_gemm_cuda(x, w)
+        again = conv_gemm.conv3x3_gemm_cuda(x, w)
         ref = conv_gemm.conv3x3_gemm_plain(x, w)
         torch.cuda.synchronize()
+        same = torch.equal(got, again)
         top = ref.float().abs().max().item()
         err = (got.float() - ref.float()).abs().max().item()
-        ok = bool(torch.isfinite(got).all().item()) and err <= GEMM_TOLERANCE[name] * top
-        del got, ref
+        ok = same and bool(torch.isfinite(got).all().item()) and err <= GEMM_TOLERANCE[name] * top
+        del got, again, ref
         line = (f"K8 {name} {label} x={shape[:4]} w=(3,3,{shape[3]},{shape[4]}): "
-                f"max_abs_err={err:.3e} (tol {GEMM_TOLERANCE[name]:g} x max|y| {top:.3e})")
+                f"max_abs_err={err:.3e} (tol {GEMM_TOLERANCE[name]:g} x max|y| {top:.3e}), "
+                f"bit-equal twice={same}")
         if counts:
             worst_bf16 = max(worst_bf16, err)
             xl, wl = conv_library_inputs(x, w)
@@ -1490,6 +1481,50 @@ def gradient_reference(label, config, size, want, probe):
              f"at {worst_name}")
 
 
+def sass_has_hgmma(kernel) -> bool:
+    """Whether the built library of ``kernel`` holds HGMMA (wgmma) in its SASS."""
+    import shutil
+    from torchok_tpu_torch.utils.cuda_build import library_path
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library_path(kernel))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return "HGMMA" in sass
+
+
+def run_swinv2_variants(records):
+    """Every registered SwinV2 variant at its own input size, batch 1, bf16
+    autocast, random weights from a seed: one K1 launch per block (windows 6
+    to 24, L 36 to 576), no plain call, finite features."""
+    import torch
+    from torchok_tpu_torch.constructor import BACKBONES
+    from torchok_tpu_torch.models.backbones.swin import _VARIANTS
+    from torchok_tpu_torch.ops import swin_attention as swin
+    from torchok_tpu_torch.ops.common import LAUNCHES
+    device = torch.device("cuda", 0)
+    for name, cfg in sorted(_VARIANTS.items()):
+        size = cfg.get("img_size", 256)
+        grid = [size // 4 // 2 ** i for i in range(len(cfg["depths"]))]
+        windows = [min(g_, cfg["window_size"]) ** 2 for g_ in grid]
+        torch.manual_seed(0)
+        model = BACKBONES.get(name)().to(device).eval()
+        image = torch.randn((1, 3, size, size), device=device)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            feat = model(image)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        finite = bool(torch.isfinite(feat).all().item())
+        print(f"{name} ({size}x{size}, bs1, bf16): L per stage {windows}, features "
+              f"{tuple(feat.shape)}, finite {finite}; launches {counts}", flush=True)
+        require_launches(f"{name} forward", counts, {swin.KERNEL: sum(cfg["depths"])})
+        if not finite:
+            fail(f"{name}: features are not finite")
+        records[swin.KERNEL]["launches"] += counts[swin.KERNEL]
+        del model, image, feat
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1524,6 +1559,11 @@ def main() -> None:
                         if not ln.startswith("ptxas info    : Compiling")
                         and "Function properties" not in ln), flush=True)
 
+    has_hgmma = sass_has_hgmma(conv_gemm.KERNEL)
+    print(f"K8 SASS has HGMMA: {str(has_hgmma).lower()}", flush=True)
+    if not has_hgmma:
+        fail("the bf16 loop of conv3x3_gemm was not compiled to wgmma (no HGMMA in its SASS)")
+
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()
@@ -1542,6 +1582,16 @@ def main() -> None:
     run_train_slice("swinv2_tiny", TRAIN_CONFIG, 256, swin_fwd, swin_bwd,
                     ("qkv", "cpb_mlp", "logit_scale"), records)
     gradient_reference("swinv2_tiny", TRAIN_CONFIG, 256, {**swin_fwd, **swin_bwd}, "cpb_mlp")
+    # window 16: 10 blocks at L = 256 and 2 at L = 64 per forward
+    run_slice("swinv2_tiny_window16", WINDOW16_SLICE_CONFIG, swin_fwd, records, 256)
+    run_train_slice("swinv2_tiny_window16", WINDOW16_TRAIN_CONFIG, 256, swin_fwd, swin_bwd,
+                    ("qkv", "cpb_mlp", "logit_scale"), records)
+    gradient_reference("swinv2_tiny_window16", WINDOW16_TRAIN_CONFIG, 256,
+                       {**swin_fwd, **swin_bwd}, "cpb_mlp")
+    # window 24 at 384: 22 blocks at L = 576 (the key-tiled path) and 2 at L = 144
+    run_slice("swinv2_base_window12to24_384", BASE384_SLICE_CONFIG, {swin.KERNEL: 24}, records,
+              384)
+    run_swinv2_variants(records)
 
     gcvit_fwd = {dot.KERNEL: GCVIT_LOCAL, dot.KERNEL_GLOBAL: GCVIT_GLOBAL}
     gcvit_bwd = {dot.KERNEL_BWD: GCVIT_LOCAL, dot.KERNEL_GLOBAL_BWD: GCVIT_GLOBAL}

@@ -130,6 +130,101 @@ def test_swin_attention_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# K1/K2 at every SwinV2 window size: (Hp, Wp, heads, ws), a 2 x 2 window grid;
+# L 36, 144 and 256 on the register-tile kernels (64 is above), 576 on the
+# key-tiled path
+# ---------------------------------------------------------------------------
+SWIN_SHAPES = {"ws6": (12, 12, 2, 6), "ws12": (24, 24, 3, 12), "ws16": (32, 32, 2, 16),
+               "ws24": (48, 48, 2, 24)}
+
+
+def _swin_inputs(device, dtype, shape, masked, b=2, seed=11):
+    hp, wp, heads, ws = SWIN_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    L = ws * ws
+    qkv = 0.5 * rng.normal(size=(b, hp, wp, 3 * heads * 32)).astype(np.float32)
+    scale = np.exp(np.minimum(np.log(10.0) + rng.normal(size=heads), np.log(100.0)))
+    bias = 16.0 / (1.0 + np.exp(-rng.normal(size=(heads, L, L))))
+    dout = rng.normal(size=(b, hp, wp, heads * 32)).astype(np.float32)
+    mask = shift_window_mask(hp, wp, ws, ws // 2).to(device) if masked else None
+    return (torch.from_numpy(qkv).to(device, dtype), torch.from_numpy(scale).float().to(device),
+            torch.from_numpy(bias).float().to(device), mask,
+            torch.from_numpy(dout).to(device, dtype), ws, heads)
+
+
+@pytest.mark.parametrize("dtype,atol,rel", [(torch.float32, 1e-4, (1e-4, 1e-3, 1e-3)),
+                                            (torch.bfloat16, 2e-2, (2e-2, 1e-3, 1e-3))],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(SWIN_SHAPES))
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_swin_attention_kernels_match_plain_at_every_window_size(cuda_device, dtype, atol, rel,
+                                                                 shape, masked):
+    qkv, scale, bias, mask, dout, ws, heads = _swin_inputs(cuda_device, dtype, shape, masked)
+    L = ws * ws
+    before = dict(ops.LAUNCHES)
+    out = ops.swin_attention_fwd_cuda(qkv, scale, bias, mask, ws, heads)
+    out_ref = ops.swin_attention_fwd_plain(qkv, scale, bias, mask, ws, heads)
+    got = ops.swin_attention_bwd_cuda(qkv, scale, bias, mask, dout, ws, heads)
+    again = ops.swin_attention_bwd_cuda(qkv, scale, bias, mask, dout, ws, heads)
+    ref = ops.swin_attention_bwd_plain(qkv, scale, bias, mask, dout, ws, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[ops.KERNEL] == before.get(ops.KERNEL, 0) + 1
+    assert ops.LAUNCHES[ops.KERNEL_BWD] == before.get(ops.KERNEL_BWD, 0) + 2
+    assert out.dtype == dtype and out.shape == out_ref.shape
+    assert (out.float() - out_ref.float()).abs().max().item() <= atol
+    assert got[0].shape == qkv.shape and got[1].shape == (heads, L, L) and got[2].shape == (heads,)
+    for g, a, r, tol in zip(got, again, ref, rel):
+        assert torch.equal(g, a)  # no atomics: bit-identical from run to run
+        assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", ["ws6", "ws8", "ws16", "ws24"])
+def test_swin_attention_bwd_kernel_sums_several_images_per_block(cuda_device, shape,
+                                                                 monkeypatch):
+    """Five images, three to a block (the last slice ragged): the window-8
+    kernel's dbias sums in registers, the templates' slabs (ws 6, 16) and the
+    key-tiled path's (ws 24), and the dscale slots all cross images."""
+    if shape == "ws8":
+        qkv, scale, bias, mask = _inputs(cuda_device, torch.float32, True, b=5)
+        dout, ws, heads = _dout(cuda_device, torch.float32, b=5), 8, 6
+    else:
+        qkv, scale, bias, mask, dout, ws, heads = _swin_inputs(cuda_device, torch.float32,
+                                                               shape, True, b=5)
+    monkeypatch.setattr(ops, "_images_per_block", lambda *args: 3)
+    got = ops.swin_attention_bwd_cuda(qkv, scale, bias, mask, dout, ws, heads)
+    ref = ops.swin_attention_bwd_plain(qkv, scale, bias, mask, dout, ws, heads)
+    torch.cuda.synchronize()
+    for g, r, tol in zip(got, ref, (1e-4, 1e-3, 1e-3)):
+        assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+def _swinv2_names():
+    from torchok_tpu_torch.models.backbones.swin import _VARIANTS
+    return sorted(_VARIANTS)
+
+
+@pytest.mark.parametrize("name", _swinv2_names())
+def test_every_swinv2_variant_runs_its_forward_through_k1(cuda_device, name):
+    """Each registered SwinV2 variant at its own input size, batch 1, bf16:
+    one K1 launch per block (window sizes 6 to 24), no plain call."""
+    from torchok_tpu_torch.constructor import BACKBONES
+    from torchok_tpu_torch.models.backbones.swin import _VARIANTS
+    cfg = _VARIANTS[name]
+    size = cfg.get("img_size", 256)
+    torch.manual_seed(0)
+    model = BACKBONES.get(name)().to(cuda_device).eval()
+    image = torch.randn((1, 3, size, size), device=cuda_device)
+    ops.LAUNCHES.clear()
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        feat = model(image)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert counts == {ops.KERNEL: sum(cfg["depths"])}
+    assert feat.shape == (1, model.out_channels, size // 32, size // 32)
+    assert bool(torch.isfinite(feat).all())
+
+
+# ---------------------------------------------------------------------------
 # plain (dot-product) window attention: K3 (local) and K4/K5 (global queries)
 # ---------------------------------------------------------------------------
 # (Hp, Wp, heads, ws): L 49 (padded to 64 keys), 196 (four query tiles), 64, 256
@@ -443,6 +538,49 @@ def test_conv3x3_gemm_kernel_refuses_what_it_does_not_take(cuda_device):
         conv_gemm.conv3x3_gemm_cuda(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match=r"\(3, 3, Cin, Cout\)"):
         conv_gemm.conv3x3_gemm_cuda(x, w[:2])
+
+
+# the bf16 path (wgmma): ResNet-50's four 3x3 shapes at batch 256, a ragged
+# M (not a multiple of the 128-row tile), Cout 64 (128 x 64 tiles) and 512,
+# Cin narrower than a 64-channel slab
+@pytest.mark.parametrize("shape", [(256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
+                                   (256, 14, 14, 256, 256), (256, 7, 7, 512, 512),
+                                   (3, 13, 11, 64, 128), (2, 10, 10, 128, 64),
+                                   (2, 7, 7, 256, 512), (2, 9, 9, 24, 40)],
+                         ids=["r50_56", "r50_28", "r50_14", "r50_7", "ragged_m", "cout64",
+                              "cout512", "narrow"])
+def test_conv3x3_gemm_bf16_path_is_one_ulp_and_bit_equal_twice(cuda_device, shape):
+    from torchok_tpu_torch.ops import conv_gemm
+    n, h, w_, cin, cout = shape
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(12)
+    x = (0.5 * torch.randn((n, h, w_, cin), generator=g, device=cuda_device)).bfloat16()
+    w = (0.05 * torch.randn((3, 3, cin, cout), generator=g, device=cuda_device)).bfloat16()
+    got = conv_gemm.conv3x3_gemm_cuda(x, w)
+    again = conv_gemm.conv3x3_gemm_cuda(x, w)
+    ref = conv_gemm.conv3x3_gemm_plain(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    top = ref.float().abs().max().item()
+    # f32 sums in another order: at most one bf16 ulp of the largest |y|
+    assert (got.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * top
+    torch.backends.cudnn.allow_tf32 = False
+    lib = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2),
+                                     w.float().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    assert (got.float() - lib).abs().max().item() <= 2.0 ** -7 * top
+
+
+def test_conv3x3_gemm_bf16_path_runs_wgmma(cuda_device):
+    """The built library's SASS holds HGMMA, Hopper's warpgroup MMA."""
+    import shutil
+    import subprocess
+    from torchok_tpu_torch.ops import conv_gemm
+    from torchok_tpu_torch.utils.cuda_build import library_path, load_library
+    load_library(conv_gemm.KERNEL)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path(conv_gemm.KERNEL))],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,23 @@
 // The TPU kernel builds the im2col matrix of a few images in VMEM and runs
 // one product of depth 9*Cin. Here the matrix is never built: the GEMM's rows
 // run over all N*H*W output pixels flattened (so 7x7 images fill a 128-row
-// tile as well as 56x56 ones do), its depth over (tap, channel), and the A
-// loader of gemm_tile.cuh gathers each 16-byte piece of a row straight from
-// the pixel it belongs to, or takes zeros at the border. w is already the
-// (9*Cin, Cout) matrix the product needs.
+// tile as well as 56x56 ones do), its depth over (tap, channel), and each
+// 16-byte piece of a row is gathered straight from the pixel it belongs to,
+// or is zero at the border. w is already the (9*Cin, Cout) matrix the
+// product needs.
+//
+// Two main loops. bf16 (the probe's type) runs conv3x3_wgmma.cuh: wgmma on
+// a warp-specialised, persistent kernel fed by a ring of cp.async and TMA
+// stages (the Hopper redesign; before it the mma.sync tile loop of
+// gemm_tile.cuh took 3.0916 ms over the four ResNet-50 shapes at batch 256 on
+// an NVIDIA H100 80GB HBM3, 700.00 W, PERF.md). f32, which exists for
+// correctness tests (TF32 would change its numbers), keeps the f32-FMA tile
+// loop of gemm_tile.cuh with the gathering loader below.
 //
 // What bounds it: 59 GFLOP at each of ResNet-50's four 3x3 shapes at batch
 // 256 against at most 0.2 GB moved, so the product bounds it (at 56x56x64 the
-// two bounds meet). The mma.sync tiles of this first version sit well below
-// the tensor-core peak; every x element is re-read nine times, from L1/L2.
+// two bounds meet); every x element is gathered nine times, from L1/L2.
+#include "conv3x3_wgmma.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
@@ -88,6 +96,33 @@ cudaError_t launch(const void* x, const void* w, void* y, int M, int H, int W, i
   return cudaGetLastError();
 }
 
+// The SM count of the current device, for the persistent grid (asked once per device).
+int multiprocessors() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms < 1) {
+      return 132;
+    }
+    cached[dev] = sms;
+  }
+  return cached[dev];
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, void* y, int M, int H, int W, int Cin,
+                         int Cout, cudaStream_t stream) {
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  if (Cout <= 64) {
+    return convwg::launch<64, 2, 2>(xb, wb, yb, M, H, W, Cin, Cout, multiprocessors(), stream);
+  }
+  return convwg::launch<128, 3, 1>(xb, wb, yb, M, H, W, Cin, Cout, multiprocessors(), stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's CUDA error (0 on success).
@@ -100,6 +135,6 @@ extern "C" int conv3x3_gemm(const void* x, const void* w, void* y, int dtype, in
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(x, w, y, (int)rows, H, W, Cin, Cout, st);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, w, y, (int)rows, H, W, Cin, Cout, st);
+  if (dtype == 1) return (int)launch_wgmma(x, w, y, (int)rows, H, W, Cin, Cout, st);
   return (int)cudaErrorInvalidValue;
 }

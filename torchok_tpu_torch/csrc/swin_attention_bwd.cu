@@ -5,8 +5,9 @@
 // of fused_swin_attention). Same contract:
 //   qkv (B, Hp, Wp, 3C) bf16|f32, scale (H,) f32, bias (H, L, L) f32,
 //   mask (nW, L, L) f32 or null, dout (B, Hp, Wp, C) in qkv's dtype
-//   ->  dqkv (B, Hp, Wp, 3C) in qkv's dtype, dbias (H, L, L) f32, dscale (H,) f32.
-// The forward is recomputed from qkv; nothing but the inputs is saved.
+//   ->  dqkv (B, Hp, Wp, 3C) in qkv's dtype, dbias (H, L, L) f32, dscale (H,) f32,
+// head dim 32, ws up to 24 (L up to 576). The forward is recomputed from qkv;
+// nothing but the inputs is saved.
 //
 // Rounding points follow the Pallas kernel (T = qkv's dtype, all else f32):
 //   rq = rsqrt(sum q^2 + 1e-12), qn = T(q rq), kn likewise
@@ -15,302 +16,36 @@
 //   dbias += dl;  dscale += sum(dl cos);  dls = T(dl s)
 //   dqn = dls kn;  dkn = dls^T qn
 //   dq = rq dqn - rq^3 q rowsum(q dqn);  dk likewise;  dqkv = T([dq | dk | dv])
-// All five products (QK^T, A^T dO, dO V^T, dls kn, dls^T qn) are computed here.
 //
-// Design. The Pallas kernel adds dbias and dscale into one output block over
-// a sequential grid; CUDA blocks run in no order, so here one block of 256
-// threads takes one (window position, head) and loops over a slice of the
-// images. Each thread owns a fixed 4x4 tile of the 64x64 logits, so the
-// softmax, da, dl and the block's running dbias sum all stay in registers
-// (row reductions are 16-lane shuffles), and only a and dls go through shared
-// memory for the transposed products. The block writes one (L, L) partial
-// and one scalar; swin_attention_bwd_reduce then adds the partials in a fixed
-// order, so the result is bit-identical from run to run (no atomics).
-// Shared memory: q, k, qn, kn, v, do as 64x33 f32 and a, dls as 64x65 f32,
-// 84,480 bytes of dynamic shared memory; the padded strides make the column
-// reads of the transposed products conflict-free.
+// The kernel is the cosine mode of the window attention backward templates:
+// up to L = 256 window_attention_bwd.cuh (one block per window position and
+// head over a slice of the images, all keys in shared memory, dk/dv in
+// registers, dl summed into a per-block slab; at L <= 64 the dl sums stay in
+// registers across the images), above it the key-tiled kernel of
+// window_attention_tiled.cuh (row statistics first, then key tile by key
+// tile). At L = 64 exactly (ws 8) the first SwinV2 backward kernel, in
+// swin_attention_bwd_ws8.cuh, runs instead: it is faster there (PERF.md).
+// All write one (L, L) dbias slab and one dscale slot per block;
+// swin_attention_bwd_reduce adds them in slot order, so the results are
+// bit-identical from run to run (no atomics).
 //
 // What bounds it: it reads qkv and dout and writes dqkv once (14 bytes per
-// token per channel in bf16) and does about 12*L*D FLOPs per token per head
-// in f32 FMAs fed from shared memory, so, like the forward, it is limited by
-// shared-memory bandwidth inside the block, far below the device-memory bound.
-// mma.sync / wgmma on bf16 operands and TMA loads are left for later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+// token and channel in bf16) and does 10*L*32 FLOPs per token and head (14*L*32
+// on the key-tiled path) in f32 FMAs fed from shared memory, far below the
+// tensor-core ridge: shared-memory bandwidth inside the block limits it.
+#include "swin_attention_bwd_ws8.cuh"
+#include "window_attention_bwd.cuh"
+#include "window_attention_tiled.cuh"
 
 namespace {
 
-constexpr int kWs = 8;
-constexpr int kL = kWs * kWs;  // tokens per window
-constexpr int kD = 32;         // head dim
-constexpr int kThreads = 256;  // 16 x 16 thread grid over each tile
-constexpr int kDp = kD + 1;    // padded shared row strides
-constexpr int kLp = kL + 1;
-constexpr size_t kSharedBytes = (6 * kL * kDp + 2 * kL * kLp + 2 * kL) * sizeof(float);
+using namespace wattn;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round an f32 value to T and back (identity for f32)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// sum / max over the 16 lanes that share a tile row (lanes differ in bits 0-3)
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-template <typename T, bool kHasMask>
-__global__ void __launch_bounds__(kThreads)
-swin_attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ scale,
-                          const float* __restrict__ bias, const float* __restrict__ mask,
-                          const T* __restrict__ dout, T* __restrict__ dqkv,
-                          float* __restrict__ partial_bias, float* __restrict__ partial_scale,
-                          int B, int Hp, int Wp, int C, int ngx, int images_per_block) {
-  extern __shared__ float smem[];
-  float(*sq)[kDp] = reinterpret_cast<float(*)[kDp]>(smem);
-  float(*sk)[kDp] = sq + kL;
-  float(*sqn)[kDp] = sk + kL;
-  float(*skn)[kDp] = sqn + kL;
-  float(*sv)[kDp] = skn + kL;
-  float(*sdo)[kDp] = sv + kL;
-  float(*sa)[kLp] = reinterpret_cast<float(*)[kLp]>(smem + 6 * kL * kDp);
-  float(*sdl)[kLp] = sa + kL;
-  float* srq = smem + 6 * kL * kDp + 2 * kL * kLp;
-  float* srk = srq + kL;
-  __shared__ float swarp[kThreads / 32];
-
-  const int win = blockIdx.x;  // row-major window index wy * ngx + wx
-  const int h = blockIdx.y;
-  const int nheads = gridDim.y;
-  const int wy = win / ngx;
-  const int wx = win - wy * ngx;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ti = tid / 16;  // tile row group: rows ti + 16 r
-  const int tj = tid % 16;  // tile column group: cols tj + 16 c (or head cols tj, tj + 16)
-  const size_t c3 = 3 * (size_t)C;
-  const float s = scale[h];
-  const float* bh = bias + (size_t)h * kL * kL;
-  const float* mw = kHasMask ? mask + (size_t)win * kL * kL : nullptr;
-
-  // this block's running sums over its images
-  float dbias_acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dbias_acc[r][c] = 0.f;
-  float dscale_acc = 0.f;
-
-  const int b0 = blockIdx.z * images_per_block;
-  const int b1 = min(B, b0 + images_per_block);
-  for (int b = b0; b < b1; ++b) {
-    // token i of the window sits at pixel (wy*ws + i/ws, wx*ws + i%ws)
-    auto pixel = [&](int i) -> size_t {
-      const int y = wy * kWs + i / kWs;
-      const int x = wx * kWs + i % kWs;
-      return ((size_t)b * Hp + y) * Wp + x;
-    };
-
-    // 1. load head h's q, k, v and dout rows of the window
-    for (int idx = tid; idx < kL * kD; idx += kThreads) {
-      const int i = idx / kD;
-      const int d = idx - i * kD;
-      const size_t p = pixel(i);
-      const T* src = qkv + p * c3 + h * kD + d;
-      sq[i][d] = to_f(src[0]);
-      sk[i][d] = to_f(src[C]);
-      sv[i][d] = to_f(src[2 * C]);
-      sdo[i][d] = to_f(dout[p * C + h * kD + d]);
-    }
-    __syncthreads();
-
-    // 2. cosine normalisation in f32, rounded to T (one warp per row)
-    for (int r = warp; r < 2 * kL; r += kThreads / 32) {
-      const bool is_q = r < kL;
-      const int i = is_q ? r : r - kL;
-      const float x = is_q ? sq[i][lane] : sk[i][lane];
-      float ss = x * x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      const float rinv = rsqrtf(ss + 1e-12f);
-      const float xn = round_to<T>(x * rinv);
-      if (is_q) {
-        sqn[i][lane] = xn;
-        if (lane == 0) srq[i] = rinv;
-      } else {
-        skn[i][lane] = xn;
-        if (lane == 0) srk[i] = rinv;
-      }
-    }
-    __syncthreads();
-
-    // 3. cos = qn kn^T and da = do v^T on the thread's 4x4 tile, softmax and
-    //    its backward in registers
-    {
-      float cosv[4][4], da[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cosv[r][c] = da[r][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < kD; ++d) {
-        float qv[4], kv[4], dv_[4], vv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          qv[r] = sqn[ti + 16 * r][d];
-          dv_[r] = sdo[ti + 16 * r][d];
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          kv[c] = skn[tj + 16 * c][d];
-          vv[c] = sv[tj + 16 * c][d];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            cosv[r][c] = fmaf(qv[r], kv[c], cosv[r][c]);
-            da[r][c] = fmaf(dv_[r], vv[c], da[r][c]);
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ti + 16 * r;
-        float a32[4];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = tj + 16 * c;
-          float logit = cosv[r][c] * s + bh[i * kL + j];
-          if (kHasMask) logit += mw[i * kL + j];
-          a32[c] = logit;
-          mx = fmaxf(mx, logit);
-        }
-        mx = row_max16(mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          a32[c] = expf(a32[c] - mx);
-          sum += a32[c];
-        }
-        sum = row_sum16(sum);
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          a32[c] = a32[c] / sum;
-          dot = fmaf(da[r][c], a32[c], dot);
-        }
-        dot = row_sum16(dot);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = tj + 16 * c;
-          const float dl = a32[c] * (da[r][c] - dot);
-          dbias_acc[r][c] += dl;
-          dscale_acc = fmaf(dl, cosv[r][c], dscale_acc);
-          sa[i][j] = round_to<T>(a32[c]);
-          sdl[i][j] = round_to<T>(dl * s);
-        }
-      }
-    }
-    __syncthreads();
-
-    // 4. the three products back to head width; thread tile rows ti + 16 r,
-    //    head columns tj and tj + 16
-    {
-      float dqn[4][2], dkn[4][2], dv[4][2];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        dqn[r][0] = dqn[r][1] = dkn[r][0] = dkn[r][1] = dv[r][0] = dv[r][1] = 0.f;
-      // dv[j] = sum_i a[i][j] do[i],  dkn[j] = sum_i dls[i][j] qn[i]  (column reads)
-#pragma unroll 4
-      for (int i = 0; i < kL; ++i) {
-        const float do0 = sdo[i][tj], do1 = sdo[i][tj + 16];
-        const float qn0 = sqn[i][tj], qn1 = sqn[i][tj + 16];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float av = sa[i][ti + 16 * r];
-          const float lv = sdl[i][ti + 16 * r];
-          dv[r][0] = fmaf(av, do0, dv[r][0]);
-          dv[r][1] = fmaf(av, do1, dv[r][1]);
-          dkn[r][0] = fmaf(lv, qn0, dkn[r][0]);
-          dkn[r][1] = fmaf(lv, qn1, dkn[r][1]);
-        }
-      }
-      // dqn[i] = sum_j dls[i][j] kn[j]
-#pragma unroll 4
-      for (int j = 0; j < kL; ++j) {
-        const float kn0 = skn[j][tj], kn1 = skn[j][tj + 16];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float lv = sdl[ti + 16 * r][j];
-          dqn[r][0] = fmaf(lv, kn0, dqn[r][0]);
-          dqn[r][1] = fmaf(lv, kn1, dqn[r][1]);
-        }
-      }
-      // through the f32 row normalisation, then out in T
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ti + 16 * r;
-        const float q0 = sq[i][tj], q1 = sq[i][tj + 16];
-        const float k0 = sk[i][tj], k1 = sk[i][tj + 16];
-        const float qdot = row_sum16(fmaf(q0, dqn[r][0], q1 * dqn[r][1]));
-        const float kdot = row_sum16(fmaf(k0, dkn[r][0], k1 * dkn[r][1]));
-        const float rq = srq[i], rk = srk[i];
-        const float rq3 = rq * rq * rq, rk3 = rk * rk * rk;
-        T* dst = dqkv + pixel(i) * c3 + h * kD + tj;
-        dst[0] = from_f<T>(rq * dqn[r][0] - rq3 * q0 * qdot);
-        dst[16] = from_f<T>(rq * dqn[r][1] - rq3 * q1 * qdot);
-        dst[C] = from_f<T>(rk * dkn[r][0] - rk3 * k0 * kdot);
-        dst[C + 16] = from_f<T>(rk * dkn[r][1] - rk3 * k1 * kdot);
-        dst[2 * C] = from_f<T>(dv[r][0]);
-        dst[2 * C + 16] = from_f<T>(dv[r][1]);
-      }
-    }
-    __syncthreads();  // shared tiles are overwritten by the next image
-  }
-
-  // 5. this block's partial sums: slot (win * gridDim.z + z), head h
-  const size_t slot = (size_t)win * gridDim.z + blockIdx.z;
-  float* pb = partial_bias + (slot * nheads + h) * kL * kL;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) pb[(ti + 16 * r) * kL + tj + 16 * c] = dbias_acc[r][c];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) dscale_acc += __shfl_xor_sync(0xffffffffu, dscale_acc, off);
-  if (lane == 0) swarp[warp] = dscale_acc;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) total += swarp[w];
-    partial_scale[slot * nheads + h] = total;
-  }
-}
-
-// Adds the per-block partials in slot order: dbias[h][i][j] and dscale[h].
+// Adds the per-block slabs and dscale slots in slot order.
 __global__ void swin_attention_bwd_reduce(const float* __restrict__ partial_bias,
                                           const float* __restrict__ partial_scale,
                                           float* __restrict__ dbias, float* __restrict__ dscale,
-                                          int slots, int nheads) {
-  const int n = nheads * kL * kL;
+                                          int slots, int nheads, int n) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < n) {
     float total = 0.f;
@@ -325,39 +60,46 @@ __global__ void swin_attention_bwd_reduce(const float* __restrict__ partial_bias
 }
 
 template <typename T, bool kHasMask>
-cudaError_t launch_one(const T* qkv, const float* scale, const float* bias, const float* mask,
-                       const T* dout, T* dqkv, float* pbias, float* pscale, int B, int Hp,
-                       int Wp, int C, int nheads, int images_per_block, cudaStream_t stream) {
-  auto kernel = swin_attention_bwd_kernel<T, kHasMask>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSharedBytes);
-  if (err != cudaSuccess) return err;
-  const int ngx = Wp / kWs;
-  const int zblocks = (B + images_per_block - 1) / images_per_block;
-  const dim3 grid(ngx * (Hp / kWs), nheads, zblocks);
-  kernel<<<grid, kThreads, kSharedBytes, stream>>>(qkv, scale, bias, mask, dout, dqkv, pbias,
-                                                   pscale, B, Hp, Wp, C, ngx, images_per_block);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch(const void* qkv, const void* scale, const void* bias, const void* mask,
-                   const void* dout, void* dqkv, void* pbias, void* pscale, int B, int Hp,
-                   int Wp, int C, int nheads, int images_per_block, cudaStream_t stream) {
+                   const void* dout, void* dqkv, void* pbias, void* pscale, const Geometry& g,
+                   int images_per_block, cudaStream_t st) {
   const T* q = static_cast<const T*>(qkv);
   const float* s = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   const float* m = static_cast<const float*>(mask);
   const T* d = static_cast<const T*>(dout);
-  T* o = static_cast<T*>(dqkv);
+  T* dq = static_cast<T*>(dqkv);
   float* pb = static_cast<float*>(pbias);
   float* ps = static_cast<float*>(pscale);
-  if (mask != nullptr) {
-    return launch_one<T, true>(q, s, bi, m, d, o, pb, ps, B, Hp, Wp, C, nheads,
-                               images_per_block, stream);
+  if (g.ws == swin8::kWs) {
+    return swin8::launch_one<T, kHasMask>(q, s, bi, m, d, dq, pb, ps, g.B, g.Hp, g.Wp, g.C,
+                                          g.nheads, images_per_block, st);
   }
-  return launch_one<T, false>(q, s, bi, m, d, o, pb, ps, B, Hp, Wp, C, nheads,
-                              images_per_block, stream);
+  if (g.L <= 64) {
+    return launch_bwd_kc<T, 4, true, false, true, kHasMask>(q, nullptr, s, bi, m, d, dq, nullptr,
+                                                            pb, ps, g, images_per_block, st);
+  }
+  if (g.L <= 208) {
+    return launch_bwd_kc<T, 13, true, false, true, kHasMask>(q, nullptr, s, bi, m, d, dq, nullptr,
+                                                             pb, ps, g, images_per_block, st);
+  }
+  if (g.L <= kMaxL) {
+    return launch_bwd_kc<T, 16, true, false, true, kHasMask>(q, nullptr, s, bi, m, d, dq, nullptr,
+                                                             pb, ps, g, images_per_block, st);
+  }
+  return launch_bwd_tiled<T, kHasMask>(qkv, scale, bias, mask, dout, dqkv, pbias,
+                                                   pscale, g, images_per_block, st);
+}
+
+template <typename T>
+cudaError_t dispatch(const void* qkv, const void* scale, const void* bias, const void* mask,
+                     const void* dout, void* dqkv, void* pbias, void* pscale, const Geometry& g,
+                     int images_per_block, cudaStream_t st) {
+  return mask != nullptr
+             ? launch<T, true>(qkv, scale, bias, mask, dout, dqkv, pbias, pscale, g,
+                               images_per_block, st)
+             : launch<T, false>(qkv, scale, bias, mask, dout, dqkv, pbias, pscale, g,
+                                images_per_block, st);
 }
 
 }  // namespace
@@ -371,28 +113,27 @@ extern "C" int swin_attention_bwd(const void* qkv, const void* scale, const void
                                   void* dscale, void* partial_bias, void* partial_scale,
                                   int dtype, int B, int Hp, int Wp, int C, int nheads, int ws,
                                   int images_per_block, void* stream) {
-  if (ws != kWs || C != nheads * kD || Hp % kWs != 0 || Wp % kWs != 0 || B < 1 ||
-      nheads < 1 || nheads > 65535 || images_per_block < 1) {
+  Geometry g;
+  if (!make_geometry(&g, B, Hp, Wp, C, nheads, ws, kMaxLTiled) || images_per_block < 1 ||
+      bias == nullptr || nheads > 65535 || (B + images_per_block - 1) / images_per_block > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const int zblocks = (B + images_per_block - 1) / images_per_block;
-  if (zblocks > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(qkv, scale, bias, mask, dout, dqkv, partial_bias, partial_scale, B, Hp,
-                        Wp, C, nheads, images_per_block, st);
+    err = dispatch<float>(qkv, scale, bias, mask, dout, dqkv, partial_bias, partial_scale, g,
+                          images_per_block, st);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(qkv, scale, bias, mask, dout, dqkv, partial_bias,
-                                partial_scale, B, Hp, Wp, C, nheads, images_per_block, st);
+    err = dispatch<__nv_bfloat16>(qkv, scale, bias, mask, dout, dqkv, partial_bias,
+                                  partial_scale, g, images_per_block, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const int slots = (Hp / kWs) * (Wp / kWs) * zblocks;
-  const int n = nheads * kL * kL;
+  const int slots = g.nW * ((B + images_per_block - 1) / images_per_block);
+  const int n = nheads * g.L * g.L;
   swin_attention_bwd_reduce<<<(n + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(partial_bias), static_cast<const float*>(partial_scale),
-      static_cast<float*>(dbias), static_cast<float*>(dscale), slots, nheads);
+      static_cast<float*>(dbias), static_cast<float*>(dscale), slots, nheads, n);
   return (int)cudaGetLastError();
 }

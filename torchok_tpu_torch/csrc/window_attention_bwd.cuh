@@ -1,13 +1,19 @@
-// Backward of the plain window attention, shared by window_attention_bwd.cu
-// (kGlobal = false) and window_attention_global_bwd.cu (kGlobal = true). See
-// window_attention_common.cuh for the layout. The forward is recomputed from
-// the inputs; nothing else is saved.
+// Backward of the window attention, shared by window_attention_bwd.cu
+// (kGlobal = false), window_attention_global_bwd.cu (kGlobal = true) and
+// swin_attention_bwd.cu (kCosine, with the shift mask kHasMask). See
+// window_attention_common.cuh for the layout; L > 256 goes to
+// window_attention_tiled.cuh. The forward is recomputed from the inputs;
+// nothing else is saved.
 //
 // With T the input dtype and all else f32, per window and head:
 //   s = q k^T;  logits = s scale_h (+ bias_h);  a32 = softmax;  a = T(a32)
 //   dv = a^T do;  da = do v^T;  dl = a32 (da - rowsum(da a32))
 //   dbias += dl;  dls = T(dl scale_h);  dq = dls k;  dk = dls^T q
-// All five products are computed here. scale gets no gradient.
+// All five products are computed here. scale gets no gradient. In cosine
+// mode q and k are first normalised (qn = T(q rq), rq = rsqrt(sum q^2 + eps),
+// kn likewise) and take their places above, the mask is added to the logits,
+// dscale += sum(dl s) with s the f32 cosine, and the gradients go back
+// through the normalisation: dq = rq dqn - rq^3 q sum(q dqn), dk likewise.
 //
 // Design. The Pallas kernels add dbias (and, in global mode, dqg) into
 // revisited output blocks over a sequential grid; CUDA blocks run in no
@@ -25,25 +31,31 @@
 // L = 196, so each block adds its dl into its own (L, L) slab of a scratch
 // buffer in device memory (first visit stores, later ones add; the slab of a
 // running block stays in L2), and window_attention_bwd_reduce adds the slabs
-// in slot order. Results are bit-identical from run to run.
+// in slot order. Results are bit-identical from run to run. In cosine mode
+// dscale is a second sum, one fixed slot per block, added in slot order by
+// swin_attention_bwd_reduce.
 #pragma once
 #include "window_attention_common.cuh"
 
 namespace wattn {
 
-template <typename T, int KC>
+template <typename T, int KC, bool kCosine = false>
 constexpr size_t bwd_shared_bytes() {
   return (size_t)(2 * 16 * KC * (kD + kPad<T>) + 2 * kTileQ * (kD + kPad<T>) +
-                  2 * kTileQ * (16 * KC + kPad<T>)) * sizeof(T) + 16 * KC * sizeof(int);
+                  2 * kTileQ * (16 * KC + kPad<T>)) * sizeof(T) + 16 * KC * sizeof(int) +
+         (kCosine ? (16 * KC + kTileQ + kThreads / 32) * sizeof(float) : 0);
 }
 
-template <typename T, int KC, bool kHasBias, bool kGlobal>
+template <typename T, int KC, bool kHasBias, bool kGlobal, bool kCosine, bool kHasMask>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg,
                             const float* __restrict__ scale, const float* __restrict__ bias,
-                            const T* __restrict__ dout, T* __restrict__ dproj,
-                            float* __restrict__ dqg, float* __restrict__ partial, Geometry g,
-                            int images_per_block) {
+                            const float* __restrict__ mask, const T* __restrict__ dout,
+                            T* __restrict__ dproj, float* __restrict__ dqg,
+                            float* __restrict__ partial, float* __restrict__ partial_scale,
+                            Geometry g, int images_per_block) {
+  static_assert(!(kCosine && kGlobal), "the cosine mode has no global queries");
+  static_assert(!kCosine || kHasBias, "the cosine mode always has its bias");
   constexpr int Lk = 16 * KC;
   constexpr int Dp = kD + kPad<T>;
   constexpr int Lkp = Lk + kPad<T>;
@@ -55,6 +67,9 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
   T* sa = sdo + kTileQ * Dp;               // [kTileQ][Lkp]  a, rounded
   T* sdl = sa + kTileQ * Lkp;              // [kTileQ][Lkp]  dls, rounded
   int* spix = reinterpret_cast<int*>(sdl + kTileQ * Lkp);  // [Lk] pixel table
+  float* srk = reinterpret_cast<float*>(spix + Lk);          // cosine: [Lk] 1 / |k|
+  float* srq = srk + Lk;                                     // cosine: [kTileQ] 1 / |q|
+  float* sred = srq + kTileQ;                                // cosine: [kThreads / 32]
 
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
@@ -72,6 +87,7 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
   // this block's slab of dl sums
   const size_t slot = kGlobal ? blockIdx.z : (size_t)blockIdx.x * gridDim.z + blockIdx.z;
   float* pb = kHasBias ? partial + (slot * g.nheads + h) * L * L : nullptr;
+  float dsc = 0.f;  // cosine: this thread's share of dscale
 
   for (int b = b0; b < b1; ++b) {
     for (int win = win0; win < win1; ++win) {
@@ -80,6 +96,10 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
       fill_pixel_table(g, win, spix);
       __syncthreads();
       load_kv<T, KC>(g, proj + base * width, width, koff, h, spix, sk, sv);
+      if constexpr (kCosine) {  // kn in place; the q tile's load below shares the barrier
+        __syncthreads();
+        normalize_rows(sk, L, srk);
+      }
       float dk[KC][2], dv[KC][2];  // rows ti + 16 rr, head columns tj, tj + 16
 #pragma unroll
       for (int rr = 0; rr < KC; ++rr) dk[rr][0] = dk[rr][1] = dv[rr][0] = dv[rr][1] = 0.f;
@@ -102,6 +122,10 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
           copy_row_part(sdo + r * Dp, dosrc, part);
         }
         __syncthreads();
+        if constexpr (kCosine) {  // qn in place
+          normalize_rows(sq, rows, srq);
+          __syncthreads();
+        }
 
         // 2. s = q k^T and da = do v^T on the thread's 4 x KC tile; softmax
         //    and its backward in registers
@@ -132,45 +156,96 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
                 da[r][c] = fmaf(dov[r], vv[c], da[r][c]);
               }
           }
+          if constexpr (kCosine) {
+            // as below, with the mask, and dscale from the cosine kept in sc
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const int lr = ti + 16 * r;  // row within the tile
-            const int i = q0 + lr;
-            const float* brow = kHasBias ? bias + ((size_t)h * L + i) * L : nullptr;
-            float mx = -INFINITY;
+            for (int r = 0; r < kRows; ++r) {
+              const int lr = ti + 16 * r;  // row within the tile
+              const int i = q0 + lr;
+              const float* brow = bias + ((size_t)h * L + i) * L;
+              const float* mrow = kHasMask ? mask + ((size_t)win * L + i) * L : nullptr;
+              float a32[KC];
+              float mx = -INFINITY;
 #pragma unroll
-            for (int c = 0; c < KC; ++c) {
-              const int j = tj + 16 * c;
-              float logit = -INFINITY;  // padded keys: weight exactly 0
-              if (j < L) {
-                logit = sc[r][c] * s;
-                if (kHasBias && lr < rows) logit += brow[j];
+              for (int c = 0; c < KC; ++c) {
+                const int j = tj + 16 * c;
+                float logit = -INFINITY;  // padded keys: weight exactly 0
+                if (j < L) {
+                  logit = sc[r][c] * s;
+                  if (lr < rows) {
+                    logit += brow[j];
+                    if (kHasMask) logit += mrow[j];
+                  }
+                }
+                a32[c] = logit;
+                mx = fmaxf(mx, logit);
               }
-              sc[r][c] = logit;
-              mx = fmaxf(mx, logit);
-            }
-            mx = row_max16(mx);  // column 0 is always a real key, so mx is finite
-            float sum = 0.f;
+              mx = row_max16(mx);
+              float sum = 0.f;
 #pragma unroll
-            for (int c = 0; c < KC; ++c) {
-              sc[r][c] = expf(sc[r][c] - mx);
-              sum += sc[r][c];
-            }
-            sum = row_sum16(sum);
-            float dot = 0.f;
+              for (int c = 0; c < KC; ++c) {
+                a32[c] = expf(a32[c] - mx);
+                sum += a32[c];
+              }
+              sum = row_sum16(sum);
+              float dot = 0.f;
 #pragma unroll
-            for (int c = 0; c < KC; ++c) {
-              sc[r][c] = sc[r][c] / sum;  // a32
-              dot = fmaf(da[r][c], sc[r][c], dot);
-            }
-            dot = row_sum16(dot);
+              for (int c = 0; c < KC; ++c) {
+                a32[c] = a32[c] / sum;
+                dot = fmaf(da[r][c], a32[c], dot);
+              }
+              dot = row_sum16(dot);
 #pragma unroll
-            for (int c = 0; c < KC; ++c) {
-              const int j = tj + 16 * c;
-              const float dl = sc[r][c] * (da[r][c] - dot);
-              sa[lr * Lkp + j] = from_f<T>(sc[r][c]);
-              sdl[lr * Lkp + j] = from_f<T>(dl * s);
-              sc[r][c] = dl;
+              for (int c = 0; c < KC; ++c) {
+                const int j = tj + 16 * c;
+                const float dl = a32[c] * (da[r][c] - dot);
+                dsc = fmaf(dl, sc[r][c], dsc);  // padded rows and keys give 0
+                sa[lr * Lkp + j] = from_f<T>(a32[c]);
+                sdl[lr * Lkp + j] = from_f<T>(dl * s);
+                sc[r][c] = dl;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const int lr = ti + 16 * r;  // row within the tile
+              const int i = q0 + lr;
+              const float* brow = kHasBias ? bias + ((size_t)h * L + i) * L : nullptr;
+              float mx = -INFINITY;
+#pragma unroll
+              for (int c = 0; c < KC; ++c) {
+                const int j = tj + 16 * c;
+                float logit = -INFINITY;  // padded keys: weight exactly 0
+                if (j < L) {
+                  logit = sc[r][c] * s;
+                  if (kHasBias && lr < rows) logit += brow[j];
+                }
+                sc[r][c] = logit;
+                mx = fmaxf(mx, logit);
+              }
+              mx = row_max16(mx);  // column 0 is always a real key, so mx is finite
+              float sum = 0.f;
+#pragma unroll
+              for (int c = 0; c < KC; ++c) {
+                sc[r][c] = expf(sc[r][c] - mx);
+                sum += sc[r][c];
+              }
+              sum = row_sum16(sum);
+              float dot = 0.f;
+#pragma unroll
+              for (int c = 0; c < KC; ++c) {
+                sc[r][c] = sc[r][c] / sum;  // a32
+                dot = fmaf(da[r][c], sc[r][c], dot);
+              }
+              dot = row_sum16(dot);
+#pragma unroll
+              for (int c = 0; c < KC; ++c) {
+                const int j = tj + 16 * c;
+                const float dl = sc[r][c] * (da[r][c] - dot);
+                sa[lr * Lkp + j] = from_f<T>(sc[r][c]);
+                sdl[lr * Lkp + j] = from_f<T>(dl * s);
+                sc[r][c] = dl;
+              }
             }
           }
           if (kHasBias) {
@@ -241,7 +316,24 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
                 float* dst = dqg + ((size_t)b * L + q0 + lr) * C + h * kD + tj;
                 dst[0] = win == 0 ? dq[r][0] : dst[0] + dq[r][0];
                 dst[16] = win == 0 ? dq[r][1] : dst[16] + dq[r][1];
-              } else {
+              } else if (!kCosine) {
+                T* dst = dproj + (base + spix[q0 + lr]) * width + h * kD + tj;
+                dst[0] = from_f<T>(dq[r][0]);
+                dst[16] = from_f<T>(dq[r][1]);
+              }
+            }
+          }
+          if constexpr (kCosine) {
+            // back through the normalisation of q (its raw rows from device
+            // memory); every lane joins the row sums
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const int lr = ti + 16 * r;
+              const T* qrow = lr < rows ? proj + (base + spix[q0 + lr]) * width + h * kD : nullptr;
+              const float x0 = qrow != nullptr ? to_f(qrow[tj]) : 0.f;
+              const float x1 = qrow != nullptr ? to_f(qrow[tj + 16]) : 0.f;
+              normalize_backward(x0, x1, lr < rows ? srq[lr] : 0.f, dq[r][0], dq[r][1]);
+              if (lr < rows) {
                 T* dst = dproj + (base + spix[q0 + lr]) * width + h * kD + tj;
                 dst[0] = from_f<T>(dq[r][0]);
                 dst[16] = from_f<T>(dq[r][1]);
@@ -252,10 +344,17 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
         __syncthreads();  // the tile's shared arrays are overwritten next
       }
 
-      // 5. dk and dv of the window's real rows
+      // 5. dk and dv of the window's real rows (cosine: dk back through the
+      //    normalisation of k, its raw rows from device memory)
 #pragma unroll
       for (int rr = 0; rr < KC; ++rr) {
         const int j = ti + 16 * rr;
+        if constexpr (kCosine) {
+          const T* krow = j < L ? proj + (base + spix[j]) * width + koff + h * kD : nullptr;
+          const float x0 = krow != nullptr ? to_f(krow[tj]) : 0.f;
+          const float x1 = krow != nullptr ? to_f(krow[tj + 16]) : 0.f;
+          normalize_backward(x0, x1, j < L ? srk[j] : 0.f, dk[rr][0], dk[rr][1]);
+        }
         if (j < L) {
           T* dst = dproj + (base + spix[j]) * width + koff + h * kD + tj;
           dst[0] = from_f<T>(dk[rr][0]);
@@ -266,6 +365,10 @@ window_attention_bwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
       }
       __syncthreads();  // spix is rewritten for the next window
     }
+  }
+  if constexpr (kCosine) {
+    const float total = block_sum(dsc, sred);
+    if (tid == 0) partial_scale[slot * g.nheads + h] = total;
   }
 }
 
@@ -280,20 +383,22 @@ __global__ void window_attention_bwd_reduce(const float* __restrict__ partial,
   }
 }
 
-template <typename T, int KC, bool kHasBias, bool kGlobal>
+template <typename T, int KC, bool kHasBias, bool kGlobal, bool kCosine = false,
+          bool kHasMask = false>
 cudaError_t launch_bwd_kc(const T* proj, const T* qg, const float* scale, const float* bias,
-                          const T* dout, T* dproj, float* dqg, float* partial, const Geometry& g,
-                          int images_per_block, cudaStream_t stream) {
-  auto kernel = window_attention_bwd_kernel<T, KC, kHasBias, kGlobal>;
-  constexpr size_t bytes = bwd_shared_bytes<T, KC>();
+                          const float* mask, const T* dout, T* dproj, float* dqg, float* partial,
+                          float* partial_scale, const Geometry& g, int images_per_block,
+                          cudaStream_t stream) {
+  auto kernel = window_attention_bwd_kernel<T, KC, kHasBias, kGlobal, kCosine, kHasMask>;
+  constexpr size_t bytes = bwd_shared_bytes<T, KC, kCosine>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int zblocks = (g.B + images_per_block - 1) / images_per_block;
   if (zblocks > 65535 || g.nheads > 65535) return cudaErrorInvalidValue;
   const dim3 grid(kGlobal ? 1 : g.nW, g.nheads, zblocks);
-  kernel<<<grid, kThreads, bytes, stream>>>(proj, qg, scale, bias, dout, dproj, dqg, partial, g,
-                                            images_per_block);
+  kernel<<<grid, kThreads, bytes, stream>>>(proj, qg, scale, bias, mask, dout, dproj, dqg,
+                                            partial, partial_scale, g, images_per_block);
   return cudaGetLastError();
 }
 
@@ -316,11 +421,14 @@ cudaError_t launch_bwd(const void* proj, const void* qg, const void* scale, cons
   float* pa = static_cast<float*>(partial);
   cudaError_t err;
   if (g.L <= 64) {
-    err = launch_bwd_kc<T, 4, kHasBias, kGlobal>(p, q, s, bi, d, dp, dq, pa, g, images_per_block, stream);
+    err = launch_bwd_kc<T, 4, kHasBias, kGlobal>(p, q, s, bi, nullptr, d, dp, dq, pa, nullptr, g,
+                                              images_per_block, stream);
   } else if (g.L <= 208) {
-    err = launch_bwd_kc<T, 13, kHasBias, kGlobal>(p, q, s, bi, d, dp, dq, pa, g, images_per_block, stream);
+    err = launch_bwd_kc<T, 13, kHasBias, kGlobal>(p, q, s, bi, nullptr, d, dp, dq, pa, nullptr, g,
+                                               images_per_block, stream);
   } else {
-    err = launch_bwd_kc<T, 16, kHasBias, kGlobal>(p, q, s, bi, d, dp, dq, pa, g, images_per_block, stream);
+    err = launch_bwd_kc<T, 16, kHasBias, kGlobal>(p, q, s, bi, nullptr, d, dp, dq, pa, nullptr, g,
+                                               images_per_block, stream);
   }
   if (err != cudaSuccess || !kHasBias) return err;
   const int zblocks = (g.B + images_per_block - 1) / images_per_block;

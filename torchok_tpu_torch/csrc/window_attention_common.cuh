@@ -1,14 +1,19 @@
-// Shared pieces of the plain (scaled dot-product) window attention kernels
-// for Hopper (sm_90a): window_attention_{fwd,bwd}.cu (qkv of the window's own
-// tokens; DaViT spatial blocks, GCViT local blocks) and
+// Shared pieces of the window attention kernels for Hopper (sm_90a):
+// window_attention_{fwd,bwd}.cu (plain scaled dot-product attention over the
+// window's own tokens; DaViT spatial blocks, GCViT local blocks),
 // window_attention_global_{fwd,bwd}.cu (GCViT global blocks: every window of
-// an image attends with that image's shared queries).
+// an image attends with that image's shared queries) and
+// swin_attention_{fwd,bwd}.cu (SwinV2 cosine attention with a per-head logit
+// scale, the relative position bias and the shift mask: kCosine).
 //
-// All four work on the unpartitioned spatial layout (B, Hp, Wp, parts*C) and
+// All work on the unpartitioned spatial layout (B, Hp, Wp, parts*C) and
 // compute each token's pixel address themselves, so no window partition or
 // reverse copy is ever made. Head dim is 32; the window side ws is a run-time
-// value up to 16, and the number of tokens L = ws*ws picks one of three
-// instantiations by the key columns each thread owns (KC: L <= 64, 208, 256).
+// value. Up to L = ws*ws = 256 (ws 16) a block holds all L keys of a window,
+// and L picks one of three instantiations by the key columns each thread
+// owns (KC: L <= 64, 208, 256). Above 256 (SwinV2's ws 24, L = 576) the
+// key-tiled path of window_attention_tiled.cuh walks the keys in tiles of
+// kTileK instead.
 //
 // A block has 256 threads laid out 16 x 16 over a tile of 64 query rows by
 // 16*KC key columns: thread (ti, tj) owns rows ti + 16 r (r < 4) and columns
@@ -17,6 +22,8 @@
 // and never written. q, k, v, dout and the rounded a and dls sit in shared
 // memory in the input dtype (they are values of that dtype, so nothing is
 // lost), with every row padded by one 32-bit word against bank conflicts.
+// In cosine mode q and k are normalised in place, in f32, and rounded back to
+// the input dtype: qn and kn are values of that dtype as well.
 // A window's pixel offsets are worked out once into a table in shared memory,
 // and rows of 32 head channels move from device memory 16 bytes per thread.
 #pragma once
@@ -32,7 +39,10 @@ constexpr int kD = 32;                // head dim
 constexpr int kThreads = 256;         // 16 x 16 thread grid over each tile
 constexpr int kRows = 4;              // query rows per thread
 constexpr int kTileQ = 16 * kRows;    // query rows per pass
-constexpr int kMaxL = 256;            // ws <= 16
+constexpr int kMaxL = 256;            // ws <= 16: all keys of a window in one block
+constexpr int kMaxLTiled = 576;       // ws <= 24 on the key-tiled path
+constexpr int kTileK = 64;            // keys per tile on the key-tiled path
+constexpr float kNormEps = 1e-12f;    // x * rsqrt(sum x^2 + eps), as the Pallas kernel
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -62,8 +72,9 @@ struct Geometry {
   int B, Hp, Wp, C, nheads, ws, L, ngx, nW;
 };
 
-__host__ inline bool make_geometry(Geometry* g, int B, int Hp, int Wp, int C, int nheads, int ws) {
-  if (ws < 1 || ws * ws > kMaxL || C != nheads * kD || B < 1 || nheads < 1 || Hp < ws ||
+__host__ inline bool make_geometry(Geometry* g, int B, int Hp, int Wp, int C, int nheads, int ws,
+                                   int max_l = kMaxL) {
+  if (ws < 1 || ws * ws > max_l || C != nheads * kD || B < 1 || nheads < 1 || Hp < ws ||
       Wp < ws || Hp % ws != 0 || Wp % ws != 0) {
     return false;
   }
@@ -117,6 +128,55 @@ __device__ __forceinline__ void load_kv(const Geometry& g, const T* __restrict__
     copy_row_part(sk + j * Dp, src, part);
     copy_row_part(sv + j * Dp, src != nullptr ? src + g.C : nullptr, part);
   }
+}
+
+// Cosine mode: normalises rows [0, rows) of a shared (rows, Dp) array in
+// place, one warp per row (lane d holds channel d): x * rsqrt(sum x^2 + eps)
+// in f32, rounded to T. The f32 factor of row i goes to rinv[i] when rinv is
+// not null (the backward needs it). Zero rows stay zero. The caller
+// synchronises before and after.
+template <typename T>
+__device__ __forceinline__ void normalize_rows(T* rows_base, int rows, float* rinv) {
+  constexpr int Dp = kD + kPad<T>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < rows; i += kThreads / 32) {
+    T* row = rows_base + i * Dp;
+    const float x = to_f(row[lane]);
+    float ss = x * x;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    const float r = rsqrtf(ss + kNormEps);
+    row[lane] = from_f<T>(x * r);
+    if (rinv != nullptr && lane == 0) rinv[i] = r;
+  }
+}
+
+// Cosine mode, backward through the f32 row normalisation xn = x r,
+// r = rsqrt(sum x^2 + eps): dx = r dxn - r^3 x sum(x dxn). The thread holds
+// columns tj and tj + 16 of one row (x0, x1 and dxn0, dxn1); the 16 lanes of
+// the row sum their shares, so every lane must call this.
+__device__ __forceinline__ void normalize_backward(float x0, float x1, float r, float& d0,
+                                                   float& d1) {
+  const float dot = row_sum16(fmaf(x0, d0, x1 * d1));
+  const float r3 = r * r * r;
+  d0 = r * d0 - r3 * x0 * dot;
+  d1 = r * d1 - r3 * x1 * dot;
+}
+
+// Sums x over the block (all kThreads threads call it) in a fixed order;
+// the result is valid in thread 0. red holds kThreads / 32 floats.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  __syncthreads();  // red may still be read from an earlier call
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
+  }
+  return total;
 }
 
 }  // namespace wattn

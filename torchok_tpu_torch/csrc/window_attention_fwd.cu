@@ -37,13 +37,13 @@ extern "C" int window_attention_fwd(const void* qkv, const void* scale, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool has_bias = bias != nullptr;
   if (dtype == 0) {
-    return (int)(has_bias ? launch_fwd<float, true, false>(qkv, nullptr, scale, bias, out, g, st)
-                          : launch_fwd<float, false, false>(qkv, nullptr, scale, bias, out, g, st));
+    return (int)(has_bias ? launch_fwd<float, true, false>(qkv, nullptr, scale, bias, nullptr, out, g, st)
+                          : launch_fwd<float, false, false>(qkv, nullptr, scale, bias, nullptr, out, g, st));
   }
   if (dtype == 1) {
     return (int)(has_bias
-                     ? launch_fwd<__nv_bfloat16, true, false>(qkv, nullptr, scale, bias, out, g, st)
-                     : launch_fwd<__nv_bfloat16, false, false>(qkv, nullptr, scale, bias, out, g, st));
+                     ? launch_fwd<__nv_bfloat16, true, false>(qkv, nullptr, scale, bias, nullptr, out, g, st)
+                     : launch_fwd<__nv_bfloat16, false, false>(qkv, nullptr, scale, bias, nullptr, out, g, st));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,11 @@
-// Forward of the plain window attention, shared by window_attention_fwd.cu
-// (kGlobal = false: q, k, v of the window's own tokens, bias optional) and
+// Forward of the window attention, shared by window_attention_fwd.cu
+// (kGlobal = false: q, k, v of the window's own tokens, bias optional),
 // window_attention_global_fwd.cu (kGlobal = true: k, v of the window, q the
-// image's shared queries). See window_attention_common.cuh for the layout.
+// image's shared queries) and swin_attention_fwd.cu (kCosine: q and k
+// row-normalised before the product, the per-head scale multiplies the
+// cosine, bias and optionally the shift mask kHasMask are added). See
+// window_attention_common.cuh for the layout; L > 256 goes to
+// window_attention_tiled.cuh.
 //
 // One block per (window, query tile, head, image): it holds all L keys and
 // values of the window and one tile of 64 queries, computes the tile's logits
@@ -22,11 +26,13 @@ constexpr size_t fwd_shared_bytes() {
                   kTileQ * (16 * KC + kPad<T>)) * sizeof(T) + 16 * KC * sizeof(int);
 }
 
-template <typename T, int KC, bool kHasBias, bool kGlobal>
+template <typename T, int KC, bool kHasBias, bool kGlobal, bool kCosine, bool kHasMask>
 __global__ void __launch_bounds__(kThreads)
 window_attention_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg,
                             const float* __restrict__ scale, const float* __restrict__ bias,
-                            T* __restrict__ out, Geometry g, int nqt) {
+                            const float* __restrict__ mask, T* __restrict__ out, Geometry g,
+                            int nqt) {
+  static_assert(!(kCosine && kGlobal), "the cosine mode has no global queries");
   constexpr int Lk = 16 * KC;
   constexpr int Dp = kD + kPad<T>;
   constexpr int Lkp = Lk + kPad<T>;
@@ -65,9 +71,14 @@ window_attention_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
     copy_row_part(sq + r * Dp, src, part);
   }
   __syncthreads();
+  if constexpr (kCosine) {  // qn and kn, in place
+    normalize_rows(sk, L, nullptr);
+    normalize_rows(sq, kTileQ, nullptr);
+    __syncthreads();
+  }
 
-  // 2. logits = (q . k) * scale[h] (+ bias[h]); f32 softmax per row; the
-  //    weights are rounded to T before they meet v
+  // 2. logits = (q . k) * scale[h] (+ bias[h]) (+ mask[win]); f32 softmax
+  //    per row; the weights are rounded to T before they meet v
   {
     float acc[kRows][KC];
 #pragma unroll
@@ -91,6 +102,7 @@ window_attention_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
     for (int r = 0; r < kRows; ++r) {
       const int i = q0 + ti + 16 * r;
       const float* brow = kHasBias ? bias + ((size_t)h * L + i) * L : nullptr;
+      const float* mrow = kHasMask ? mask + ((size_t)win * L + i) * L : nullptr;
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
@@ -99,6 +111,7 @@ window_attention_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
         if (j < L) {
           logit = acc[r][c] * s;
           if (kHasBias && i < L) logit += brow[j];
+          if (kHasMask && i < L) logit += mrow[j];
         }
         acc[r][c] = logit;
         mx = fmaxf(mx, logit);
@@ -145,10 +158,10 @@ window_attention_fwd_kernel(const T* __restrict__ proj, const T* __restrict__ qg
   }
 }
 
-template <typename T, int KC, bool kHasBias, bool kGlobal>
+template <typename T, int KC, bool kHasBias, bool kGlobal, bool kCosine, bool kHasMask>
 cudaError_t launch_fwd_kc(const T* proj, const T* qg, const float* scale, const float* bias,
-                          T* out, const Geometry& g, cudaStream_t stream) {
-  auto kernel = window_attention_fwd_kernel<T, KC, kHasBias, kGlobal>;
+                          const float* mask, T* out, const Geometry& g, cudaStream_t stream) {
+  auto kernel = window_attention_fwd_kernel<T, KC, kHasBias, kGlobal, kCosine, kHasMask>;
   constexpr size_t bytes = fwd_shared_bytes<T, KC>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -156,23 +169,28 @@ cudaError_t launch_fwd_kc(const T* proj, const T* qg, const float* scale, const 
   const int nqt = (g.L + kTileQ - 1) / kTileQ;
   if (g.B > 65535 || g.nheads > 65535) return cudaErrorInvalidValue;
   const dim3 grid(g.nW * nqt, g.nheads, g.B);
-  kernel<<<grid, kThreads, bytes, stream>>>(proj, qg, scale, bias, out, g, nqt);
+  kernel<<<grid, kThreads, bytes, stream>>>(proj, qg, scale, bias, mask, out, g, nqt);
   return cudaGetLastError();
 }
 
 // picks the instantiation by L: 4 key columns per thread up to 64 keys, 13 up
 // to 208 (L 196 of ws 14, L 144 of ws 12), 16 up to 256
-template <typename T, bool kHasBias, bool kGlobal>
+template <typename T, bool kHasBias, bool kGlobal, bool kCosine = false, bool kHasMask = false>
 cudaError_t launch_fwd(const void* proj, const void* qg, const void* scale, const void* bias,
-                       void* out, const Geometry& g, cudaStream_t stream) {
+                       const void* mask, void* out, const Geometry& g, cudaStream_t stream) {
   const T* p = static_cast<const T*>(proj);
   const T* q = static_cast<const T*>(qg);
   const float* s = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
+  const float* m = static_cast<const float*>(mask);
   T* o = static_cast<T*>(out);
-  if (g.L <= 64) return launch_fwd_kc<T, 4, kHasBias, kGlobal>(p, q, s, bi, o, g, stream);
-  if (g.L <= 208) return launch_fwd_kc<T, 13, kHasBias, kGlobal>(p, q, s, bi, o, g, stream);
-  return launch_fwd_kc<T, 16, kHasBias, kGlobal>(p, q, s, bi, o, g, stream);
+  if (g.L <= 64) {
+    return launch_fwd_kc<T, 4, kHasBias, kGlobal, kCosine, kHasMask>(p, q, s, bi, m, o, g, stream);
+  }
+  if (g.L <= 208) {
+    return launch_fwd_kc<T, 13, kHasBias, kGlobal, kCosine, kHasMask>(p, q, s, bi, m, o, g, stream);
+  }
+  return launch_fwd_kc<T, 16, kHasBias, kGlobal, kCosine, kHasMask>(p, q, s, bi, m, o, g, stream);
 }
 
 }  // namespace wattn

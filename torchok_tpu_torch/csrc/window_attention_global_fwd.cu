@@ -27,7 +27,7 @@ extern "C" int window_attention_global_fwd(const void* kv, const void* qg, const
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fwd<float, true, true>(kv, qg, scale, bias, out, g, st);
-  if (dtype == 1) return (int)launch_fwd<__nv_bfloat16, true, true>(kv, qg, scale, bias, out, g, st);
+  if (dtype == 0) return (int)launch_fwd<float, true, true>(kv, qg, scale, bias, nullptr, out, g, st);
+  if (dtype == 1) return (int)launch_fwd<__nv_bfloat16, true, true>(kv, qg, scale, bias, nullptr, out, g, st);
   return (int)cudaErrorInvalidValue;
 }

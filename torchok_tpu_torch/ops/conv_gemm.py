@@ -6,12 +6,15 @@ convs).
 HWIO (the probe's layouts), stride 1, zero padding 1, contraction over
 ``9 * Cin`` with f32 accumulation and one rounding to ``x.dtype``. A CUDA
 tensor goes to the hand-written Hopper kernel ``csrc/conv3x3_gemm.cu`` (it
-launches or raises); a CPU tensor goes to :func:`conv3x3_gemm_plain`, which
-builds the im2col matrix the kernel never builds. Forward only, as the probe.
+launches or raises): bf16 through its ``wgmma`` main loop
+(``csrc/conv3x3_wgmma.cuh``), f32 through f32 FMAs; a CPU tensor goes to
+:func:`conv3x3_gemm_plain`, which builds the im2col matrix the kernel never
+builds. Forward only, as the probe.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +25,14 @@ KERNEL = "conv3x3_gemm"
 PLAIN = "conv3x3_gemm_plain"
 # x, w, y; dtype, N, H, W, Cin, Cout; stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _function():
+    """The ``extern "C"`` entry of ``csrc/conv3x3_gemm.cu``, built at first
+    use and looked up once: the lookup is host time on every launch."""
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    return load_function(KERNEL, _ARGTYPES)
 
 
 def conv3x3_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -40,8 +51,9 @@ def conv3x3_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_gemm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel. Raises on what it does not take: f32 or bf16
-    ``x`` and ``w`` of one type, Cin and Cout multiples of 8, both contiguous
-    on one CUDA device."""
+    ``x`` and ``w`` of one type, Cin and Cout multiples of 8 (the kernel moves
+    16-byte pieces of 8 bf16 channels), both contiguous on one CUDA device and
+    starting on 16-byte boundaries."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPE_CODE:
@@ -56,10 +68,12 @@ def conv3x3_gemm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"Cout={cout}")
     check_tensor(x, "x", (n, h, ww, cin), x.dtype, x.device)
     check_tensor(w, "w", (3, 3, cin, cout), x.dtype, x.device)
-    from torchok_tpu_torch.utils.cuda_build import load_function
+    for t, name in ((x, "x"), (w, "w")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     y = torch.empty((n, h, ww, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = load_function(KERNEL, _ARGTYPES)(
+    err = _function()(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODE[x.dtype], n, h, ww, cin, cout,
         stream)
     if err != 0:

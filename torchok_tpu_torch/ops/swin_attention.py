@@ -5,7 +5,13 @@ forward and backward.
 fused_swin_attention``: qkv ``(B, Hp, Wp, 3C)`` in, ``(B, Hp, Wp, C)`` out,
 with window partition and reverse folded into the op. A CUDA tensor goes to
 the hand-written Hopper kernels ``csrc/swin_attention_fwd.cu`` and, for the
-gradient, ``csrc/swin_attention_bwd.cu`` (they launch or raise); a CPU tensor
+gradient, ``csrc/swin_attention_bwd.cu`` (they launch or raise) at every
+window size of the registered SwinV2 variants (ws 6 to 24, L = 36 to 576;
+head dim 32): the cosine mode of the window attention templates
+``csrc/window_attention_{fwd,bwd}.cuh`` up to L = 256 and their key-tiled
+path ``csrc/window_attention_tiled.cuh`` above it. The JAX package sends
+L = 576 to an XLA formulation on its TPU (a VMEM gate); no CUDA tensor is
+ever sent to a plain version here. A CPU tensor
 goes to :func:`swin_attention_fwd_plain` and :func:`swin_attention_bwd_plain`,
 the plain PyTorch versions of the same arithmetic, which the CPU tests compare
 with the JAX package and ``chip_smoke.py`` compares with the kernels on the
@@ -34,8 +40,9 @@ PLAIN = "swin_attention_fwd_plain"
 KERNEL_BWD = "swin_attention_bwd"
 PLAIN_BWD = "swin_attention_bwd_plain"
 
-_KERNEL_WS = 8
 _KERNEL_D = 32
+_KERNEL_MAX_L = 576  # ws 24; above 256 the kernels walk the keys in tiles
+_TILED_ABOVE_L = 256
 
 
 # window_partition / window_reverse are the counterparts of torchok_tpu's
@@ -169,13 +176,15 @@ def _check_attention_args(kernel: str, qkv: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"qkv must be (B, Hp, Wp, 3C), got {tuple(qkv.shape)}")
     _, hp, wp, c3 = qkv.shape
     c = c3 // 3
-    if ws != _KERNEL_WS or c != nheads * _KERNEL_D:
-        raise ValueError(f"{kernel} takes ws={_KERNEL_WS} (L=64) and head dim "
-                         f"{_KERNEL_D}; got ws={ws}, head dim {c / nheads:g}")
+    if c != nheads * _KERNEL_D or not 1 <= ws * ws <= _KERNEL_MAX_L:
+        raise ValueError(f"{kernel} takes head dim {_KERNEL_D} and L = ws*ws <= "
+                         f"{_KERNEL_MAX_L}; got head dim {c / nheads:g}, ws={ws}")
     if hp % ws or wp % ws:
         raise ValueError(f"Hp={hp}, Wp={wp} must be multiples of ws={ws}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    if qkv.data_ptr() % 16:  # rows of 32 channels move 16 bytes per thread
+        raise ValueError("qkv must start on a 16-byte boundary")
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
     check_tensor(scale, "scale", (nheads,), torch.float32, qkv.device)
@@ -204,13 +213,26 @@ def swin_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def _images_per_block(b: int, positions: int, device: torch.device) -> int:
+def _images_per_block(b: int, positions: int, device: torch.device,
+                      blocks_per_sm: int = 4) -> int:
     """Images each backward block loops over: few enough blocks to keep the
-    partial sums small, enough (about four per SM) to fill the card at every
-    stage (stage 1 has 64 windows x 3 heads, stage 4 one window x 24)."""
+    partial sums small, enough (about ``blocks_per_sm`` per SM) to fill the
+    card at every stage (stage 1 has 64 windows x 3 heads, stage 4 one window
+    x 24)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    slices = max(1, min(b, -(-4 * sms // positions)))
+    slices = max(1, min(b, -(-blocks_per_sm * sms // positions)))
     return -(-b // slices)
+
+
+def backward_scratch(b: int, nw: int, nheads: int, ws: int,
+                     device: torch.device) -> Tuple[int, int]:
+    """(images per backward block, slots) of the backward's dbias slabs,
+    (slots, H, L, L) f32. The key-tiled path (L > 256) holds one block per SM,
+    so it aims at two per SM: at swinv2_base_window12to24's stages at batch 32
+    the slabs take 425, 340 and 340 MB."""
+    per_sm = 2 if ws * ws > _TILED_ABOVE_L else 4
+    per_block = _images_per_block(b, nw * nheads, device, per_sm)
+    return per_block, nw * -(-b // per_block)
 
 
 def swin_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
@@ -224,10 +246,11 @@ def swin_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
     check_tensor(dout, "dout", (b, hp, wp, c), qkv.dtype, qkv.device)
+    if dout.data_ptr() % 16:
+        raise ValueError("dout must start on a 16-byte boundary")
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
-    per_block = _images_per_block(b, nw * nheads, qkv.device)
-    slots = nw * -(-b // per_block)
+    per_block, slots = backward_scratch(b, nw, nheads, ws, qkv.device)
     f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nheads, L, L), **f32)
