@@ -6,7 +6,10 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
 2. Builds the port's ten CUDA kernels from ``torchok_tpu_torch/csrc`` with
    nvcc, one compiler per source, side by side, and prints each kernel's
-   registers and spills.
+   registers and spills; for K2's bf16 tensor-core passes
+   (``csrc/swin_attention_bwd_mma.cuh``) their registers and spill bytes,
+   that ``cuobjdump -sass`` finds HMMA in all four instantiations, and the
+   route each window size takes per dtype (bf16 must take ``mma``).
 3. Holds each kernel against its plain PyTorch version on the card and times
    kernel, plain version and the closest library call
    (``F.scaled_dot_product_attention`` on prepared windows; for a backward
@@ -1481,15 +1484,65 @@ def gradient_reference(label, config, size, want, probe):
              f"at {worst_name}")
 
 
-def sass_has_hgmma(kernel) -> bool:
-    """Whether the built library of ``kernel`` holds HGMMA (wgmma) in its SASS."""
+def sass_functions(kernel) -> dict:
+    """The SASS of each function in the built library of ``kernel``, by name."""
     import shutil
     from torchok_tpu_torch.utils.cuda_build import library_path
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(library_path(kernel))], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return "HGMMA" in sass
+    return {part.split("\n", 1)[0].strip(): part for part in sass.split("Function : ")[1:]}
+
+
+def sass_has_hgmma(kernel) -> bool:
+    """Whether the built library of ``kernel`` holds HGMMA (wgmma) in its SASS."""
+    return any("HGMMA" in text for text in sass_functions(kernel).values())
+
+
+def ptxas_usage(kernel, needle):
+    """(function, registers, spill stores, spill loads) of each entry function
+    of ``kernel``'s build whose mangled name holds ``needle``, from the
+    compiler's ``-Xptxas -v`` output."""
+    from torchok_tpu_torch.utils.cuda_build import build_log
+    found, name, spills = [], None, (0, 0)
+    for ln in build_log(kernel).splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "bytes spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            spills = (nums[1], nums[2])  # stack frame, spill stores, spill loads
+        elif "Used" in ln and "registers" in ln and name and needle in name:
+            regs = int(ln.split("Used")[1].split()[0])
+            found.append((name, regs) + spills)
+            name = None
+    return found
+
+
+def check_k2_build():
+    """K2's tensor-core passes: registers and spills, HMMA in their SASS, and
+    the route each window size takes per dtype."""
+    import torch
+    from torchok_tpu_torch.ops import swin_attention as swin
+    usage = ptxas_usage(swin.KERNEL_BWD, "swin_bwd_")
+    for name, regs, stores, loads in usage:
+        print(f"K2 mma {name}: {regs} registers, spill stores {stores} B, spill loads {loads} B",
+              flush=True)
+    sass = {n: t for n, t in sass_functions(swin.KERNEL_BWD).items() if "swin_bwd_" in n}
+    with_hmma = sorted(n for n, t in sass.items() if "HMMA" in t)
+    print(f"K2 SASS has HMMA in {len(with_hmma)} of its {len(sass)} tensor-core kernels",
+          flush=True)
+    if len(usage) != 4 or len(sass) != 4 or len(with_hmma) != 4:
+        fail(f"K2's tensor-core kernels: {len(usage)} in the build log, {len(sass)} in the SASS, "
+             f"{len(with_hmma)} with HMMA (expected 4 each)")
+    windows = sorted({st[4] for _, stages in SWIN_MODELS.values() for st in stages})
+    for ws in windows:
+        routes = {dtype_name(t): swin.backward_route(t, ws) for t in (torch.bfloat16,
+                                                                    torch.float32)}
+        print(f"K2 route L={ws * ws} (ws {ws}): bf16 {routes['bfloat16']}, "
+              f"f32 {routes['float32']}", flush=True)
+        if routes["bfloat16"] != "mma":
+            fail(f"K2 in bf16 at ws {ws} does not take the tensor-core kernel")
 
 
 def run_swinv2_variants(records):
@@ -1564,6 +1617,7 @@ def main() -> None:
     if not has_hgmma:
         fail("the bf16 loop of conv3x3_gemm was not compiled to wgmma (no HGMMA in its SASS)")
 
+    check_k2_build()
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()

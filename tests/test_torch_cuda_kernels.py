@@ -132,10 +132,11 @@ def test_swin_attention_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
 # ---------------------------------------------------------------------------
 # K1/K2 at every SwinV2 window size: (Hp, Wp, heads, ws), a 2 x 2 window grid;
 # L 36, 144 and 256 on the register-tile kernels (64 is above), 576 on the
-# key-tiled path
+# key-tiled path (f32; bf16 K2 takes the tensor-core kernel at every L); an odd
+# L (ws 7, 49) reads its bias without 16-byte alignment
 # ---------------------------------------------------------------------------
 SWIN_SHAPES = {"ws6": (12, 12, 2, 6), "ws12": (24, 24, 3, 12), "ws16": (32, 32, 2, 16),
-               "ws24": (48, 48, 2, 24)}
+               "ws24": (48, 48, 2, 24), "ws7": (14, 14, 2, 7)}
 
 
 def _swin_inputs(device, dtype, shape, masked, b=2, seed=11):
@@ -178,24 +179,52 @@ def test_swin_attention_kernels_match_plain_at_every_window_size(cuda_device, dt
         assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
 
 
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, (1e-4, 1e-3, 1e-3)),
+                                       (torch.bfloat16, (2e-2, 1e-3, 1e-3))], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", ["ws6", "ws8", "ws16", "ws24"])
-def test_swin_attention_bwd_kernel_sums_several_images_per_block(cuda_device, shape,
+def test_swin_attention_bwd_kernel_sums_several_images_per_block(cuda_device, shape, dtype, rel,
                                                                  monkeypatch):
-    """Five images, three to a block (the last slice ragged): the window-8
-    kernel's dbias sums in registers, the templates' slabs (ws 6, 16) and the
-    key-tiled path's (ws 24), and the dscale slots all cross images."""
+    """Five images, three to a block (the last slice ragged). f32: the
+    templates' dbias sums in registers (ws 6, 8) and in slabs (ws 16) and the
+    key-tiled path's (ws 24); bf16: the tensor-core kernel's dbias columns
+    in shared memory across the images of a dk/dv block. The dscale slots
+    cross images too; bit-equal twice."""
     if shape == "ws8":
-        qkv, scale, bias, mask = _inputs(cuda_device, torch.float32, True, b=5)
-        dout, ws, heads = _dout(cuda_device, torch.float32, b=5), 8, 6
+        qkv, scale, bias, mask = _inputs(cuda_device, dtype, True, b=5)
+        dout, ws, heads = _dout(cuda_device, dtype, b=5), 8, 6
     else:
-        qkv, scale, bias, mask, dout, ws, heads = _swin_inputs(cuda_device, torch.float32,
-                                                               shape, True, b=5)
+        qkv, scale, bias, mask, dout, ws, heads = _swin_inputs(cuda_device, dtype, shape, True,
+                                                               b=5)
     monkeypatch.setattr(ops, "_images_per_block", lambda *args: 3)
+    assert ops.backward_scratch(5, 4, heads, ws, dtype, cuda_device).images_per_block == 3
     got = ops.swin_attention_bwd_cuda(qkv, scale, bias, mask, dout, ws, heads)
+    again = ops.swin_attention_bwd_cuda(qkv, scale, bias, mask, dout, ws, heads)
     ref = ops.swin_attention_bwd_plain(qkv, scale, bias, mask, dout, ws, heads)
     torch.cuda.synchronize()
-    for g, r, tol in zip(got, ref, (1e-4, 1e-3, 1e-3)):
+    for g, a, r, tol in zip(got, again, ref, rel):
+        assert torch.equal(g, a)
         assert (g.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", ["ws6", "ws8", "ws12", "ws16", "ws24"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_swin_attention_bwd_routes_bf16_to_the_tensor_core_kernel(cuda_device, shape, masked):
+    """bf16 reaches the tensor-core kernel at every L (36 to 576), f32 the
+    FMA kernels, by the launches counted per route."""
+    if shape == "ws8":
+        args = _inputs(cuda_device, torch.bfloat16, masked) + (_dout(cuda_device, torch.bfloat16),
+                                                               8, 6)
+    else:
+        args = _swin_inputs(cuda_device, torch.bfloat16, shape, masked)
+    ws = args[5]
+    before = dict(ops.ROUTE_LAUNCHES)
+    ops.swin_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES["mma"] == before.get("mma", 0) + 1
+    assert sum(ops.ROUTE_LAUNCHES.values()) == sum(before.values()) + 1
+    assert ops.backward_route(torch.bfloat16, ws) == "mma"
+    f32_route = "tiled" if ws * ws > 256 else "templates"
+    assert ops.backward_route(torch.float32, ws) == f32_route
 
 
 def _swinv2_names():

@@ -2,8 +2,9 @@
 """Where the device time of the torchok_tpu_torch slices goes, on one NVIDIA
 GPU.
 
-    python tools/profile_torch_slice.py [--model swinv2|gcvit_tiny|davit_t|resnet50|
-        efficientnet_b0|mobilenetv3_large_100] [--mode eval|train] [--batches 3] [--trace PATH]
+    python tools/profile_torch_slice.py [--model swinv2|swinv2_tiny_window16_256|gcvit_tiny|
+        davit_t|resnet50|efficientnet_b0|mobilenetv3_large_100] [--mode eval|train]
+        [--batches 3] [--trace PATH]
 
 ``--mode eval`` builds the model's inference slice from ``chip_smoke``'s
 config (bs 128; resnet50, efficientnet_b0 and mobilenetv3_large_100 bs 256;
@@ -33,18 +34,13 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_GLOBAL = r"(<[^>]*(, true|\(bool\)1)>|.*Lb1EEEv)"
 KINDS = [  # first match wins
     ("K9 mbconv_fused_fwd", r"mbconv_(pass|gate)"),
-    ("K2 swin_attention_bwd", r"swin_attention_bwd"),
-    ("K1 swin_attention_fwd", r"swin_attention_fwd"),
-    # the global and local kernels are instantiations of one template: the
-    # last template argument (kGlobal) tells them apart, demangled or not
-    ("K5 window_attention_global_bwd", r"window_attention_bwd_kernel" + _GLOBAL),
-    ("K3b window_attention_bwd", r"window_attention_bwd_kernel"),
+    # K2's bf16 passes and their set-up (swin_mma::...), its f32 key-tiled
+    # kernel, its entry's reduce
+    ("K2 swin_attention_bwd", r"swin_attention_bwd|swin_mma|window_attention_bwd_tiled"),
+    ("K1 swin_attention_fwd", r"swin_attention_fwd|window_attention_fwd_tiled"),
     ("K3b/K5 dbias reduce", r"window_attention_bwd_reduce"),
-    ("K4 window_attention_global_fwd", r"window_attention_fwd_kernel" + _GLOBAL),
-    ("K3a window_attention_fwd", r"window_attention_fwd_kernel"),
     ("K6 window_attention_mw_fwd", r"window_attention_mw_fwd"),
     ("K7 matmul_bn_fwd (+ reduce)", r"matmul_bn_(fwd|reduce)"),
     ("K8 conv3x3_gemm", r"conv3x3_gemm"),
@@ -65,8 +61,34 @@ KINDS = [  # first match wins
     ("reductions", r"reduce|Reduce"),
 ]
 
+# The window attention templates serve K1/K2 (cosine), K3a/K3b and K4/K5
+# (global queries): template <T, KC, kHasBias, kGlobal, kCosine, kHasMask>.
+_TEMPLATE = re.compile(r"window_attention_(fwd|bwd)_kernel")
+_TEMPLATE_KINDS = {("fwd", "cosine"): "K1 swin_attention_fwd",
+                   ("bwd", "cosine"): "K2 swin_attention_bwd",
+                   ("fwd", "global"): "K4 window_attention_global_fwd",
+                   ("bwd", "global"): "K5 window_attention_global_bwd",
+                   ("fwd", "plain"): "K3a window_attention_fwd",
+                   ("bwd", "plain"): "K3b window_attention_bwd"}
+
+
+def _template_flags(name: str):
+    """The bool template arguments of a window attention template kernel,
+    from its demangled (``<..., true, false, ...>``) or mangled (``Lb1E``)
+    name."""
+    m = re.search(r"window_attention_(?:fwd|bwd)_kernel<([^>]*)>", name)
+    if m:
+        return [a.strip() in ("true", "(bool)1") for a in m.group(1).split(",")[2:]]
+    return [b == "1" for b in re.findall(r"Lb([01])E", name)]
+
 
 def kind_of(name: str) -> str:
+    m = _TEMPLATE.search(name)
+    flags = _template_flags(name) if m else []
+    if len(flags) == 4:
+        _, is_global, cosine, _ = flags
+        mode = "cosine" if cosine else "global" if is_global else "plain"
+        return _TEMPLATE_KINDS[(m.group(1), mode)]
     for kind, pattern in KINDS:
         if re.search(pattern, name):
             return kind
@@ -75,8 +97,9 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", choices=("swinv2", "gcvit_tiny", "davit_t", "resnet50",
-                                            "efficientnet_b0", "mobilenetv3_large_100"),
+    parser.add_argument("--model", choices=("swinv2", "swinv2_tiny_window16_256", "gcvit_tiny",
+                                            "davit_t", "resnet50", "efficientnet_b0",
+                                            "mobilenetv3_large_100"),
                         default="swinv2")
     parser.add_argument("--mode", choices=("eval", "train"), default="eval")
     parser.add_argument("--batches", type=int, default=3)
@@ -95,7 +118,9 @@ def main() -> None:
     from torchok_tpu_torch.constructor.config_structure import Phase
 
     print(chip_smoke.card_line())
-    train_config = {"swinv2": chip_smoke.TRAIN_CONFIG, "gcvit_tiny": chip_smoke.GCVIT_TRAIN_CONFIG,
+    train_config = {"swinv2": chip_smoke.TRAIN_CONFIG,
+                    "swinv2_tiny_window16_256": chip_smoke.WINDOW16_TRAIN_CONFIG,
+                    "gcvit_tiny": chip_smoke.GCVIT_TRAIN_CONFIG,
                     "davit_t": chip_smoke.DAVIT_TRAIN_CONFIG,
                     "resnet50": chip_smoke.RESNET_TRAIN_CONFIG,
                     "efficientnet_b0": chip_smoke.EFFNET_TRAIN_CONFIG}.get(args.model)
@@ -103,6 +128,7 @@ def main() -> None:
         sys.exit(f"profile_torch_slice: {args.model} has no train recipe")
     if args.mode == "eval":
         cfg = {"swinv2": chip_smoke.SLICE_CONFIG,
+               "swinv2_tiny_window16_256": chip_smoke.WINDOW16_SLICE_CONFIG,
                "gcvit_tiny": chip_smoke.GCVIT_SLICE_CONFIG,
                "resnet50": chip_smoke.RESNET_SLICE_CONFIG,
                "efficientnet_b0": chip_smoke.EFFNET_SLICE_CONFIG,

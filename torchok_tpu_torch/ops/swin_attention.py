@@ -7,11 +7,19 @@ with window partition and reverse folded into the op. A CUDA tensor goes to
 the hand-written Hopper kernels ``csrc/swin_attention_fwd.cu`` and, for the
 gradient, ``csrc/swin_attention_bwd.cu`` (they launch or raise) at every
 window size of the registered SwinV2 variants (ws 6 to 24, L = 36 to 576;
-head dim 32): the cosine mode of the window attention templates
-``csrc/window_attention_{fwd,bwd}.cuh`` up to L = 256 and their key-tiled
-path ``csrc/window_attention_tiled.cuh`` above it. The JAX package sends
-L = 576 to an XLA formulation on its TPU (a VMEM gate); no CUDA tensor is
-ever sent to a plain version here. A CPU tensor
+head dim 32). The forward is the cosine mode of the window attention
+templates ``csrc/window_attention_fwd.cuh`` up to L = 256 and their
+key-tiled path ``csrc/window_attention_tiled.cuh`` above it, f32 FMAs fed
+from shared memory. The backward routes by dtype
+(:func:`backward_route`): bf16, what training runs under autocast, goes to
+the tensor-core kernel ``csrc/swin_attention_bwd_mma.cuh`` at every L (two
+passes on ``mma.sync``, bounded by its exponentials, bias reads and f32
+softmax arithmetic rather than by its products); f32 stays on the FMA
+templates (``window_attention_bwd.cuh``, the key-tiled path above L = 256),
+bounded by shared-memory bandwidth. :func:`backward_scratch` sizes each
+route's grid and scratch. The JAX package sends L = 576 to an XLA
+formulation on its TPU (a VMEM gate); no CUDA tensor is ever sent to a plain
+version here. A CPU tensor
 goes to :func:`swin_attention_fwd_plain` and :func:`swin_attention_bwd_plain`,
 the plain PyTorch versions of the same arithmetic, which the CPU tests compare
 with the JAX package and ``chip_smoke.py`` compares with the kernels on the
@@ -26,8 +34,9 @@ logit gradient is cast to the input dtype before the two products with it.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,6 +52,12 @@ PLAIN_BWD = "swin_attention_bwd_plain"
 _KERNEL_D = 32
 _KERNEL_MAX_L = 576  # ws 24; above 256 the kernels walk the keys in tiles
 _TILED_ABOVE_L = 256
+_MMA_TILE = 64  # keys (queries) per block of the tensor-core backward's passes
+
+# the backward's routes, as swin_attention_bwd_route numbers them
+BWD_ROUTES = ("templates", "tiled", "mma")
+# launches of the backward per route (the wrapper adds one per launch)
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 # window_partition / window_reverse are the counterparts of torchok_tpu's
@@ -153,8 +168,9 @@ _ARGTYPES = {
     # qkv, scale, bias, mask, out; dtype, B, Hp, Wp, C, nheads, ws; stream
     KERNEL: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     # qkv, scale, bias, mask, dout, dqkv, dbias, dscale, partial_bias,
-    # partial_scale; dtype, B, Hp, Wp, C, nheads, ws, images_per_block; stream
-    KERNEL_BWD: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    # partial_scale, row_stats, work; dtype, B, Hp, Wp, C, nheads, ws,
+    # images_per_block; stream
+    KERNEL_BWD: [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -162,6 +178,15 @@ def _function(name: str):
     """The ``extern "C"`` entry of ``csrc/<name>.cu`` (built at first use)."""
     from torchok_tpu_torch.utils.cuda_build import load_function
     return load_function(name, _ARGTYPES[name])
+
+
+def backward_route(dtype: torch.dtype, ws: int) -> str:
+    """The route (one of :data:`BWD_ROUTES`) the backward kernel's entry
+    takes for this dtype and window side, as the built library reports it."""
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    code = load_function(KERNEL_BWD, [ctypes.c_int, ctypes.c_int],
+                         "swin_attention_bwd_route")(DTYPE_CODE[dtype], ws)
+    return BWD_ROUTES[code]
 
 
 def _check_attention_args(kernel: str, qkv: torch.Tensor, scale: torch.Tensor,
@@ -213,26 +238,72 @@ def swin_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _images_per_block(b: int, positions: int, device: torch.device,
                       blocks_per_sm: int = 4) -> int:
     """Images each backward block loops over: few enough blocks to keep the
     partial sums small, enough (about ``blocks_per_sm`` per SM) to fill the
     card at every stage (stage 1 has 64 windows x 3 heads, stage 4 one window
     x 24)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    slices = max(1, min(b, -(-blocks_per_sm * sms // positions)))
+    slices = max(1, min(b, -(-blocks_per_sm * _sm_count(device) // positions)))
     return -(-b // slices)
 
 
-def backward_scratch(b: int, nw: int, nheads: int, ws: int,
-                     device: torch.device) -> Tuple[int, int]:
-    """(images per backward block, slots) of the backward's dbias slabs,
-    (slots, H, L, L) f32. The key-tiled path (L > 256) holds one block per SM,
-    so it aims at two per SM: at swinv2_base_window12to24's stages at batch 32
-    the slabs take 425, 340 and 340 MB."""
-    per_sm = 2 if ws * ws > _TILED_ABOVE_L else 4
-    per_block = _images_per_block(b, nw * nheads, device, per_sm)
-    return per_block, nw * -(-b // per_block)
+class BackwardScratch(NamedTuple):
+    """Grid and scratch of one backward launch (all scratch f32)."""
+    images_per_block: int     # images a block of the dbias-summing pass loops over
+    slots: int                # dbias slabs: (slots, H, L, L)
+    scale_slots: int          # dscale sums: (scale_slots, H)
+    row_stats: int            # entries of the bf16 row statistics (3, B, H, nW, L)
+    work: int                 # entries of the bf16 kernel's work: a shifted block's
+    #                           bias + mask (nW, H, L, L), 16-byte aligned, then 1 / |k|
+
+    def nbytes(self, nheads: int, L: int) -> int:
+        return 4 * (self.slots * nheads * L * L + self.scale_slots * nheads + self.row_stats
+                    + self.work)
+
+
+# the bf16 backward's dbias slabs stay under this many bytes when the grid
+# would otherwise slice the images finer
+_MMA_SLAB_BYTES = 64 * 2 ** 20
+
+
+def backward_scratch(b: int, nw: int, nheads: int, ws: int, dtype: torch.dtype,
+                     device: torch.device, masked: bool = False) -> BackwardScratch:
+    """Grid and scratch of the backward for ``dtype``. f32, on the FMA
+    templates: one dbias slab per (window position, slice of the images);
+    the key-tiled path (L > 256) holds one block per SM, so it aims at two
+    per SM (at swinv2_base_window12to24's stages at batch 32 the slabs take
+    425, 340 and 340 MB). bf16, on the tensor-core kernel: its dk/dv pass has
+    a block per (window position, 64-key tile, head, slice) holding the
+    block's (L, 64) dbias column in shared memory over its images, so one
+    slab per (window position, slice) and one dscale slot per block; it
+    aims at about four waves of one block per SM (fewer images per block
+    balance the SMs better) while the slabs stay under 64 MiB. Its dq pass
+    has a block per image (never slower than a few images per block on the
+    H100, PERF.md). Its row statistics take 3 floats per token and head;
+    its work scratch holds a shifted block's bias + mask (one (L, L) matrix
+    per window and head) and 1 / |k| (a float per token and head; kn itself
+    waits in dqkv's dv channels)."""
+    L = ws * ws
+    if dtype != torch.bfloat16:
+        per_sm = 2 if L > _TILED_ABOVE_L else 4
+        per_block = _images_per_block(b, nw * nheads, device, per_sm)
+        slots = nw * -(-b // per_block)
+        return BackwardScratch(per_block, slots, slots, 0, 0)
+    tiles = -(-L // _MMA_TILE)
+    positions = nw * tiles * nheads
+    per_block = _images_per_block(b, positions, device, 4)
+    max_slices = max(1, _MMA_SLAB_BYTES // (nw * nheads * L * L * 4))
+    if -(-b // per_block) > max_slices:
+        per_block = -(-b // max_slices)
+    slots = nw * -(-b // per_block)
+    pixels = b * nw * L
+    work = (-(-nw * nheads * L * L // 4) * 4 if masked else 0) + pixels * nheads
+    return BackwardScratch(per_block, slots, slots * tiles, 3 * b * nheads * nw * L, work)
 
 
 def swin_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
@@ -250,22 +321,27 @@ def swin_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
         raise ValueError("dout must start on a 16-byte boundary")
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
-    per_block, slots = backward_scratch(b, nw, nheads, ws, qkv.device)
+    plan = backward_scratch(b, nw, nheads, ws, qkv.dtype, qkv.device, mask is not None)
     f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nheads, L, L), **f32)
     dscale = torch.empty((nheads,), **f32)
-    partial_bias = torch.empty((slots, nheads, L, L), **f32)
-    partial_scale = torch.empty((slots, nheads), **f32)
+    partial_bias = torch.empty((plan.slots, nheads, L, L), **f32)
+    partial_scale = torch.empty((plan.scale_slots, nheads), **f32)
+    row_stats = torch.empty((plan.row_stats,), **f32) if plan.row_stats else None
+    work = torch.empty((plan.work,), **f32) if plan.work else None
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _function(KERNEL_BWD)(
         qkv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, dout.data_ptr(),
         dqkv.data_ptr(), dbias.data_ptr(), dscale.data_ptr(),
         partial_bias.data_ptr(), partial_scale.data_ptr(),
-        DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
+        row_stats.data_ptr() if row_stats is not None else None,
+        work.data_ptr() if work is not None else None,
+        DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, plan.images_per_block, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_BWD} launch failed: CUDA error {err}")
+    ROUTE_LAUNCHES[backward_route(qkv.dtype, ws)] += 1
     LAUNCHES[KERNEL_BWD] += 1
     return dqkv, dbias, dscale
 

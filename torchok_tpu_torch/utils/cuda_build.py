@@ -82,10 +82,11 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def load_function(name: str, argtypes: Sequence) -> Callable[..., int]:
-    """The ``extern "C"`` entry ``name`` of ``csrc/<name>.cu`` (built at first
-    use), taking ``argtypes`` and returning the launch's CUDA error code."""
-    fn = getattr(load_library(name), name)
+def load_function(name: str, argtypes: Sequence, symbol: str = "") -> Callable[..., int]:
+    """The ``extern "C"`` entry ``symbol`` (by default ``name``) of
+    ``csrc/<name>.cu`` (built at first use), taking ``argtypes`` and returning
+    an int (a launch's CUDA error code)."""
+    fn = getattr(load_library(name), symbol or name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
