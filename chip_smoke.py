@@ -6,10 +6,11 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
 2. Builds the port's ten CUDA kernels from ``torchok_tpu_torch/csrc`` with
    nvcc, one compiler per source, side by side, and prints each kernel's
-   registers and spills; for K2's bf16 tensor-core passes
+   registers and spills; for K1's bf16 tensor-core kernel
+   (``csrc/swin_attention_fwd_mma.cuh``) and K2's two passes
    (``csrc/swin_attention_bwd_mma.cuh``) their registers and spill bytes,
-   that ``cuobjdump -sass`` finds HMMA in all four instantiations, and the
-   route each window size takes per dtype (bf16 must take ``mma``).
+   that ``cuobjdump -sass`` finds HMMA in each, and the route each window
+   size takes per dtype (bf16 must take ``mma``).
 3. Holds each kernel against its plain PyTorch version on the card and times
    kernel, plain version and the closest library call
    (``F.scaled_dot_product_attention`` on prepared windows; for a backward
@@ -17,11 +18,11 @@
    beside the bound from the bytes each must move and the operations it does:
    * K1/K2 (SwinV2 cosine attention, forward/backward) at each stage shape of
      four SwinV2 models (``SWIN_MODELS``: windows 8; 16 and 8; 12 and 6; 24
-     and 12, so L = 36 to 576, 576 on the key-tiled path), batch 8 in f32
+     and 12, so L = 36 to 576; in f32, 576 on the key-tiled path), batch 8 in f32
      (TF32 off) and each model's batch (128; 32 at 384x384) in bf16. K1: max
      abs error <= 1e-4 in f32, <= 2e-2 in bf16. K2: dqkv, dbias and dscale
-     each within a stated fraction of the reference's largest magnitude,
-     bit-equal between two launches.
+     each within a stated fraction of the reference's largest magnitude.
+     Both bit-equal between two launches.
    * K3a/K3b (plain window attention, forward/backward) at gcvit_tiny's four
      local shapes (windows 7/7/14/7, with the bias) and davit_t's four
      (window 7, no bias); K4/K5 (global-query attention, forward/backward)
@@ -196,7 +197,7 @@ STAGES = ((64, 64, 96, 3), (32, 32, 192, 6), (16, 16, 384, 12), (8, 8, 768, 24))
 # SwinV2 models whose K1/K2 are held and timed at their stage shapes: (batch,
 # stages of (Hp, Wp, C, heads, ws, blocks)) at each model's input size (256,
 # 256, 192, 384); a window shrinks to a map no larger than it. L = ws * ws:
-# 64; 256 and 64; 144 and 36; 576 (the key-tiled path) and 144.
+# 64; 256 and 64; 144 and 36; 576 (in f32 the key-tiled path) and 144.
 SWIN_MODELS = {
     "swinv2_tiny_window8_256": (128, ((64, 64, 96, 3, 8, 2), (32, 32, 192, 6, 8, 2),
                                       (16, 16, 384, 12, 8, 6), (8, 8, 768, 24, 8, 2))),
@@ -381,7 +382,7 @@ def check_swin(backward: bool):
                 g.manual_seed(1000 + seed)
                 dout = torch.randn((b, hp, wp, c), generator=g, device="cuda").to(dtype)
                 got = run(kernel, args, dout, ws, heads)
-                again = run(kernel, args, dout, ws, heads) if backward else got
+                again = run(kernel, args, dout, ws, heads)
                 ref = run(plain, args, dout, ws, heads)
                 torch.cuda.synchronize()
                 ok = all(torch.equal(a, b_) for a, b_ in zip(got, again))
@@ -402,7 +403,7 @@ def check_swin(backward: bool):
                 del got, again, ref
                 line = (f"{kind} {name} {model} B{b} stage{stage} qkv=({b},{hp},{wp},{3 * c}) "
                         f"heads={heads} ws={ws} L={ws * ws} mask={masked} x{n}: "
-                        + ", ".join(parts) + (", bit-equal twice" if backward else ""))
+                        + ", ".join(parts) + ", bit-equal twice")
                 if b == batch:
                     k_ms = median_ms(lambda: run(kernel, args, dout, ws, heads), TIMING_ITERS)
                     p_ms = median_ms(lambda: run(plain, args, dout, ws, heads),
@@ -1519,30 +1520,32 @@ def ptxas_usage(kernel, needle):
     return found
 
 
-def check_k2_build():
-    """K2's tensor-core passes: registers and spills, HMMA in their SASS, and
-    the route each window size takes per dtype."""
+def check_mma_build(kind, library, needle, route):
+    """The bf16 tensor-core kernels of K1 or K2 (the four instantiations
+    whose names hold ``needle`` in ``library``'s build): registers and
+    spills, HMMA in their SASS, and the route each window size takes per
+    dtype (``route``: bf16 on the tensor-core kernel, f32 on the FMA
+    templates or the key-tiled path)."""
     import torch
-    from torchok_tpu_torch.ops import swin_attention as swin
-    usage = ptxas_usage(swin.KERNEL_BWD, "swin_bwd_")
+    usage = ptxas_usage(library, needle)
     for name, regs, stores, loads in usage:
-        print(f"K2 mma {name}: {regs} registers, spill stores {stores} B, spill loads {loads} B",
-              flush=True)
-    sass = {n: t for n, t in sass_functions(swin.KERNEL_BWD).items() if "swin_bwd_" in n}
+        print(f"{kind} mma {name}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B", flush=True)
+    sass = {n: t for n, t in sass_functions(library).items() if needle in n}
     with_hmma = sorted(n for n, t in sass.items() if "HMMA" in t)
-    print(f"K2 SASS has HMMA in {len(with_hmma)} of its {len(sass)} tensor-core kernels",
+    print(f"{kind} SASS has HMMA in {len(with_hmma)} of its {len(sass)} tensor-core kernels",
           flush=True)
     if len(usage) != 4 or len(sass) != 4 or len(with_hmma) != 4:
-        fail(f"K2's tensor-core kernels: {len(usage)} in the build log, {len(sass)} in the SASS, "
-             f"{len(with_hmma)} with HMMA (expected 4 each)")
+        fail(f"{kind}'s tensor-core kernels: {len(usage)} in the build log, {len(sass)} in the "
+             f"SASS, {len(with_hmma)} with HMMA (expected 4 each)")
     windows = sorted({st[4] for _, stages in SWIN_MODELS.values() for st in stages})
     for ws in windows:
-        routes = {dtype_name(t): swin.backward_route(t, ws) for t in (torch.bfloat16,
-                                                                    torch.float32)}
-        print(f"K2 route L={ws * ws} (ws {ws}): bf16 {routes['bfloat16']}, "
+        routes = {dtype_name(t): route(t, ws) for t in (torch.bfloat16, torch.float32)}
+        print(f"{kind} route L={ws * ws} (ws {ws}): bf16 {routes['bfloat16']}, "
               f"f32 {routes['float32']}", flush=True)
-        if routes["bfloat16"] != "mma":
-            fail(f"K2 in bf16 at ws {ws} does not take the tensor-core kernel")
+        if routes["bfloat16"] != "mma" or routes["float32"] == "mma":
+            fail(f"{kind} at ws {ws}: bf16 must take the tensor-core kernel and f32 the FMA "
+                 f"kernels, got {routes}")
 
 
 def run_swinv2_variants(records):
@@ -1617,7 +1620,10 @@ def main() -> None:
     if not has_hgmma:
         fail("the bf16 loop of conv3x3_gemm was not compiled to wgmma (no HGMMA in its SASS)")
 
-    check_k2_build()
+    # K1: swin_fwd_kernel<tile rows / 16, images a block>; K2: its two passes,
+    # masked and unmasked
+    check_mma_build("K1", swin.KERNEL, "swin_fwd_kernel", swin.forward_route)
+    check_mma_build("K2", swin.KERNEL_BWD, "swin_bwd_", swin.backward_route)
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()
@@ -1642,7 +1648,7 @@ def main() -> None:
                     ("qkv", "cpb_mlp", "logit_scale"), records)
     gradient_reference("swinv2_tiny_window16", WINDOW16_TRAIN_CONFIG, 256,
                        {**swin_fwd, **swin_bwd}, "cpb_mlp")
-    # window 24 at 384: 22 blocks at L = 576 (the key-tiled path) and 2 at L = 144
+    # window 24 at 384: 22 blocks at L = 576 and 2 at L = 144
     run_slice("swinv2_base_window12to24_384", BASE384_SLICE_CONFIG, {swin.KERNEL: 24}, records,
               384)
     run_swinv2_variants(records)

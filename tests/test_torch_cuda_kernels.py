@@ -227,6 +227,60 @@ def test_swin_attention_bwd_routes_bf16_to_the_tensor_core_kernel(cuda_device, s
     assert ops.backward_route(torch.float32, ws) == f32_route
 
 
+@pytest.mark.parametrize("shape", ["ws6", "ws8", "ws12", "ws16", "ws24"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_swin_attention_fwd_routes_bf16_to_the_tensor_core_kernel(cuda_device, shape, masked):
+    """bf16 K1 reaches the tensor-core kernel at every L (36 to 576), within
+    2e-2 of the plain version and bit-equal twice; f32 stays on the FMA
+    kernels (the templates, or the key-tiled path above L = 256), by the
+    launches counted per route."""
+    if shape == "ws8":
+        qkv, scale, bias, mask = _inputs(cuda_device, torch.bfloat16, masked)
+        ws, heads = 8, 6
+    else:
+        qkv, scale, bias, mask, _, ws, heads = _swin_inputs(cuda_device, torch.bfloat16, shape,
+                                                            masked)
+    before = dict(ops.FWD_ROUTE_LAUNCHES)
+    got = ops.swin_attention_fwd_cuda(qkv, scale, bias, mask, ws, heads)
+    again = ops.swin_attention_fwd_cuda(qkv, scale, bias, mask, ws, heads)
+    ref = ops.swin_attention_fwd_plain(qkv, scale, bias, mask, ws, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # no atomics: bit-identical from run to run
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert ops.FWD_ROUTE_LAUNCHES["mma"] == before.get("mma", 0) + 2
+    assert sum(ops.FWD_ROUTE_LAUNCHES.values()) == sum(before.values()) + 2
+    assert ops.forward_route(torch.bfloat16, ws) == "mma"
+    f32_route = "tiled" if ws * ws > 256 else "templates"
+    assert ops.forward_route(torch.float32, ws) == f32_route
+    ops.swin_attention_fwd_cuda(qkv.float(), scale, bias, mask, ws, heads)
+    assert ops.FWD_ROUTE_LAUNCHES[f32_route] == before.get(f32_route, 0) + 1
+
+
+@pytest.mark.parametrize("images", [1, 2])
+@pytest.mark.parametrize("shape", ["ws6", "ws8", "ws12", "ws16", "ws24"])
+def test_swin_attention_fwd_kernel_takes_several_images_per_block(cuda_device, shape, images,
+                                                                  monkeypatch):
+    """bf16 K1 with five images, one or two to a block (with two, the last
+    block takes one): a block's warps take their rows of each image in turn
+    against the same bias tiles; within 2e-2 of the plain version,
+    bit-equal twice."""
+    if shape == "ws8":
+        qkv, scale, bias, mask = _inputs(cuda_device, torch.bfloat16, True, b=5)
+        ws, heads = 8, 6
+    else:
+        qkv, scale, bias, mask, _, ws, heads = _swin_inputs(cuda_device, torch.bfloat16, shape,
+                                                            True, b=5)
+    monkeypatch.setattr(ops, "_FWD_IMAGES", images)
+    plan = ops.forward_scratch(5, qkv.shape[1], qkv.shape[2], heads, ws)
+    assert plan.images_per_block == images and plan.grid[2] == -(-5 // images)
+    got = ops.swin_attention_fwd_cuda(qkv, scale, bias, mask, ws, heads)
+    again = ops.swin_attention_fwd_cuda(qkv, scale, bias, mask, ws, heads)
+    ref = ops.swin_attention_fwd_plain(qkv, scale, bias, mask, ws, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
 def _swinv2_names():
     from torchok_tpu_torch.models.backbones.swin import _VARIANTS
     return sorted(_VARIANTS)

@@ -1,7 +1,7 @@
 """``tools/profile_torch_slice.py`` files each kernel of a trace under its
 kind: the window attention templates by their template flags (``<T, KC,
-kHasBias, kGlobal, kCosine, kHasMask>``), demangled or mangled, and K2's
-tensor-core passes under K2."""
+kHasBias, kGlobal, kCosine, kHasMask>``), demangled or mangled, K1's
+tensor-core kernel under K1 and K2's tensor-core passes under K2."""
 import importlib.util
 import os
 
@@ -25,6 +25,15 @@ def _tool():
     ("void wattn::window_attention_fwd_kernel<__nv_bfloat16, 16, true, false, true, true>(x)",
      "K1 swin_attention_fwd"),
     ("void wattn::window_attention_fwd_tiled_kernel<__nv_bfloat16, true>(x)",
+     "K1 swin_attention_fwd"),
+    # K1's bf16 tensor-core kernel and its set-up
+    ("void swin_fwd::swin_fwd_kernel<4, 2>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16*, wattn::Geometry, int)", "K1 swin_attention_fwd"),
+    ("_ZN8swin_fwd15swin_fwd_kernelILi3ELi1EEEvPK13__nv_bfloat16S3_PKfS5_PS1_N5wattn8GeometryEi",
+     "K1 swin_attention_fwd"),
+    ("swin_fwd::normalize_k(__nv_bfloat16 const*, __nv_bfloat16*, unsigned long, int)",
+     "K1 swin_attention_fwd"),
+    ("swin_fwd::combine_bias_mask(float const*, float const*, float*, int, int, int)",
      "K1 swin_attention_fwd"),
     # GCViT's global and local blocks, DaViT's spatial blocks
     ("void wattn::window_attention_fwd_kernel<__nv_bfloat16, 4, true, true, false, false>(x)",

@@ -39,7 +39,8 @@ KINDS = [  # first match wins
     # K2's bf16 passes and their set-up (swin_mma::...), its f32 key-tiled
     # kernel, its entry's reduce
     ("K2 swin_attention_bwd", r"swin_attention_bwd|swin_mma|window_attention_bwd_tiled"),
-    ("K1 swin_attention_fwd", r"swin_attention_fwd|window_attention_fwd_tiled"),
+    # K1's bf16 kernel and its set-up (swin_fwd::...), its f32 key-tiled kernel
+    ("K1 swin_attention_fwd", r"swin_attention_fwd|swin_fwd|window_attention_fwd_tiled"),
     ("K3b/K5 dbias reduce", r"window_attention_bwd_reduce"),
     ("K6 window_attention_mw_fwd", r"window_attention_mw_fwd"),
     ("K7 matmul_bn_fwd (+ reduce)", r"matmul_bn_(fwd|reduce)"),

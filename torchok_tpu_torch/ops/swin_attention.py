@@ -7,19 +7,21 @@ with window partition and reverse folded into the op. A CUDA tensor goes to
 the hand-written Hopper kernels ``csrc/swin_attention_fwd.cu`` and, for the
 gradient, ``csrc/swin_attention_bwd.cu`` (they launch or raise) at every
 window size of the registered SwinV2 variants (ws 6 to 24, L = 36 to 576;
-head dim 32). The forward is the cosine mode of the window attention
-templates ``csrc/window_attention_fwd.cuh`` up to L = 256 and their
-key-tiled path ``csrc/window_attention_tiled.cuh`` above it, f32 FMAs fed
-from shared memory. The backward routes by dtype
-(:func:`backward_route`): bf16, what training runs under autocast, goes to
-the tensor-core kernel ``csrc/swin_attention_bwd_mma.cuh`` at every L (two
-passes on ``mma.sync``, bounded by its exponentials, bias reads and f32
-softmax arithmetic rather than by its products); f32 stays on the FMA
-templates (``window_attention_bwd.cuh``, the key-tiled path above L = 256),
-bounded by shared-memory bandwidth. :func:`backward_scratch` sizes each
-route's grid and scratch. The JAX package sends L = 576 to an XLA
-formulation on its TPU (a VMEM gate); no CUDA tensor is ever sent to a plain
-version here. A CPU tensor
+head dim 32). Both route by dtype (:func:`forward_route`,
+:func:`backward_route`; launches counted per route in
+:data:`FWD_ROUTE_LAUNCHES` and :data:`ROUTE_LAUNCHES`). bf16, what inference
+and training run under autocast, goes to the tensor-core kernels at every L:
+``csrc/swin_attention_fwd_mma.cuh`` (the key tiles walked twice on
+``mma.sync``, row statistics then ``bf16(a32) v``) and
+``csrc/swin_attention_bwd_mma.cuh`` (two passes on ``mma.sync``), bounded by
+their tile and bias loads and f32 softmax arithmetic rather than by their
+products. f32 stays on the FMA templates (``window_attention_fwd.cuh``
+and ``window_attention_bwd.cuh`` up to L = 256, the key-tiled path
+``window_attention_tiled.cuh`` above it), bounded by shared-memory
+bandwidth. :func:`forward_scratch` and :func:`backward_scratch` size the
+tensor-core kernels' grids and scratch. The JAX package sends L = 576 to an
+XLA formulation on its TPU (a VMEM gate); no CUDA tensor is ever sent to a
+plain version here. A CPU tensor
 goes to :func:`swin_attention_fwd_plain` and :func:`swin_attention_bwd_plain`,
 the plain PyTorch versions of the same arithmetic, which the CPU tests compare
 with the JAX package and ``chip_smoke.py`` compares with the kernels on the
@@ -52,11 +54,14 @@ PLAIN_BWD = "swin_attention_bwd_plain"
 _KERNEL_D = 32
 _KERNEL_MAX_L = 576  # ws 24; above 256 the kernels walk the keys in tiles
 _TILED_ABOVE_L = 256
-_MMA_TILE = 64  # keys (queries) per block of the tensor-core backward's passes
+_MMA_TILE = 64  # most rows of a tile of the tensor-core kernels
 
-# the backward's routes, as swin_attention_bwd_route numbers them
+# the routes, as swin_attention_{fwd,bwd}_route number them (alike)
 BWD_ROUTES = ("templates", "tiled", "mma")
-# launches of the backward per route (the wrapper adds one per launch)
+FWD_ROUTES = BWD_ROUTES
+# launches of the forward and of the backward per route (the wrappers add one
+# per launch)
+FWD_ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -165,8 +170,9 @@ def swin_attention_bwd_plain(qkv: torch.Tensor, scale: torch.Tensor,
 
 
 _ARGTYPES = {
-    # qkv, scale, bias, mask, out; dtype, B, Hp, Wp, C, nheads, ws; stream
-    KERNEL: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    # qkv, scale, bias, mask, out, kn, bias_mask; dtype, B, Hp, Wp, C, nheads,
+    # ws, images_per_block; stream
+    KERNEL: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     # qkv, scale, bias, mask, dout, dqkv, dbias, dscale, partial_bias,
     # partial_scale, row_stats, work; dtype, B, Hp, Wp, C, nheads, ws,
     # images_per_block; stream
@@ -180,13 +186,22 @@ def _function(name: str):
     return load_function(name, _ARGTYPES[name])
 
 
+def _route(kernel: str, dtype: torch.dtype, ws: int) -> int:
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    return load_function(kernel, [ctypes.c_int, ctypes.c_int],
+                         f"{kernel}_route")(DTYPE_CODE[dtype], ws)
+
+
+def forward_route(dtype: torch.dtype, ws: int) -> str:
+    """The route (one of :data:`FWD_ROUTES`) the forward kernel's entry
+    takes for this dtype and window side, as the built library reports it."""
+    return FWD_ROUTES[_route(KERNEL, dtype, ws)]
+
+
 def backward_route(dtype: torch.dtype, ws: int) -> str:
     """The route (one of :data:`BWD_ROUTES`) the backward kernel's entry
     takes for this dtype and window side, as the built library reports it."""
-    from torchok_tpu_torch.utils.cuda_build import load_function
-    code = load_function(KERNEL_BWD, [ctypes.c_int, ctypes.c_int],
-                         "swin_attention_bwd_route")(DTYPE_CODE[dtype], ws)
-    return BWD_ROUTES[code]
+    return BWD_ROUTES[_route(KERNEL_BWD, dtype, ws)]
 
 
 def _check_attention_args(kernel: str, qkv: torch.Tensor, scale: torch.Tensor,
@@ -218,6 +233,46 @@ def _check_attention_args(kernel: str, qkv: torch.Tensor, scale: torch.Tensor,
         check_tensor(mask, "mask", (nw, L, L), torch.float32, qkv.device)
 
 
+def _tile_rows(L: int) -> int:
+    """The tensor-core kernels' tile height: L cut into ceil(L / 64) tiles
+    of one height, a multiple of 16 (48 at L = 36 and 144, else 64), as
+    ``swin_mma::tile_rows``."""
+    tiles = -(-L // _MMA_TILE)
+    return -(-(-(-L // tiles)) // 16) * 16
+
+
+class ForwardScratch(NamedTuple):
+    """Grid and scratch of one launch of the bf16 tensor-core forward."""
+    images_per_block: int      # images whose rows a block's warps take in turn
+    tile_rows: int             # query (and key) rows of a tile; a warp per 16
+    grid: Tuple[int, int, int]  # (window positions x query tiles, heads, slices of the images)
+    threads: int               # per block
+    kn: int                    # bf16 entries of kn, (B, Hp, Wp, C)
+    bias_mask: int             # f32 entries of a shifted block's bias + mask, (nW, H, L, L)
+
+
+# images a block of the bf16 forward takes (1 or 2)
+_FWD_IMAGES = 2
+
+
+def forward_scratch(b: int, hp: int, wp: int, nheads: int, ws: int,
+                    masked: bool = False) -> ForwardScratch:
+    """Grid and scratch of the bf16 forward (``csrc/swin_attention_fwd_mma.
+    cuh``): a block per (window position, query tile, head, slice of two
+    images), a warp per 16 query rows of each image in turn, so each bias
+    tile the block loads serves two images (its loads bound the kernel:
+    PERF.md); kn of every token normalised once per launch into a scratch
+    the size of the output, and in shifted blocks bias + mask added once
+    into an (nW, H, L, L) f32 scratch."""
+    L = ws * ws
+    nw = (hp // ws) * (wp // ws)
+    tr = 64 if _tile_rows(L) > 48 else 48  # swin_fwd::fwd_tile_rows
+    per_block = min(_FWD_IMAGES, b)
+    return ForwardScratch(per_block, tr, (nw * -(-L // _MMA_TILE), nheads, -(-b // per_block)),
+                          2 * tr, b * hp * wp * nheads * _KERNEL_D,
+                          nw * nheads * L * L if masked else 0)
+
+
 def swin_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor, mask: Optional[torch.Tensor],
                             ws: int, nheads: int) -> torch.Tensor:
@@ -227,13 +282,24 @@ def swin_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
+    kn = bias_mask = None
+    images_per_block = 1
+    if qkv.dtype == torch.bfloat16:
+        plan = forward_scratch(b, hp, wp, nheads, ws, mask is not None)
+        images_per_block = plan.images_per_block
+        kn = torch.empty((plan.kn,), dtype=torch.bfloat16, device=qkv.device)
+        if plan.bias_mask:
+            bias_mask = torch.empty((plan.bias_mask,), dtype=torch.float32, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _function(KERNEL)(
         qkv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
+        kn.data_ptr() if kn is not None else None,
+        bias_mask.data_ptr() if bias_mask is not None else None,
+        DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, images_per_block, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
+    FWD_ROUTE_LAUNCHES[forward_route(qkv.dtype, ws)] += 1
     LAUNCHES[KERNEL] += 1
     return out
 
