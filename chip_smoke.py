@@ -44,8 +44,12 @@
      bit-equal twice; its library call is ``F.conv2d`` on channels-last bf16.
    * K9 (one inference MBConv block, fused) at the JAX probe's two shapes
      and EfficientNet-B0's nine blocks of its form (BatchNorms folded, eps
-     1e-3), batch 8 in f32 (<= 1e-4 of the largest |y|) and batch 256 in
-     bf16 (<= two ulps), bit-equal between two launches; its library time is
+     1e-3), batch 8 in f32 (<= 1e-4 of the largest |y|; the three-launch
+     route) and batch 256 in bf16 (<= two ulps; the one-launch cluster
+     route of ``mbconv_fused_cluster.cuh``, whose four kernels must hold
+     HMMA in their SASS), bit-equal between two launches, and in bf16 at
+     B0's shapes of 2 to 8 strips with inputs whose output hangs on the SE
+     mean across the strips (``make_se_case``); its library time is
      the unfused chain of library calls (``tools/probe_torch_mbconv_fused.py::
      library_block``) at the probe's shapes and the blocks' own eval forwards
      for the record.
@@ -56,8 +60,8 @@
    ``tools/probe_torch_conv_bn.py`` forward and backward (8 K7 launches, no
    plain call, loss and gradients against the unfused chain); ``conv3x3_gemm``
    over the four shapes (against ``F.conv2d``); ``mbconv_fused`` over B0's
-   nine blocks at batch 256 in bf16 (9 K9 launches, each within one bf16
-   ulp of the block's f32 eval forward).
+   nine blocks at batch 256 in bf16 (9 K9 launches, all by the cluster
+   route, each within one bf16 ulp of the block's f32 eval forward).
 5. Drives the slices through ``torchok_tpu_torch.__main__.run`` with the
    dicts below (each equal to its ``configs/classification_*_synthetic*.yaml``),
    at full width, batch 128 (ResNet-50, EfficientNet-B0, MobileNetV3: 256),
@@ -1003,10 +1007,11 @@ def b0_cases(probe, device):
 
 def check_k9(probe, b0):
     """K9 against its plain version at the probe's two shapes and B0's nine
-    blocks, f32 at batch 8 and bf16 at batch 256, twice for bit equality;
-    at batch 256 the kernel, the plain version and the library chain are
-    timed. The record sums B0's nine blocks; their library time is the
-    blocks' own eval forwards (bf16 autocast, channels-last)."""
+    blocks, f32 at batch 8 and bf16 at batch 256, twice for bit equality,
+    each by the route it must take (bf16: the one-launch cluster kernel, f32:
+    the three launches); at batch 256 the kernel, the plain version and the
+    library chain are timed. The record sums B0's nine blocks; their library
+    time is the blocks' own eval forwards (bf16 autocast, channels-last)."""
     import numpy as np
     import torch
     from torchok_tpu_torch.ops import mbconv_fused as mb
@@ -1023,11 +1028,15 @@ def check_k9(probe, b0):
             x = probe.make_input(rng, n, hw, cin, device, dtype)
             p = folded if folded is not None else probe.make_params(rng, cin, mid, rd, k, device,
                                                                     dtype)
+            want = "cluster" if dtype == torch.bfloat16 else "three_launch"
+            routes = dict(mb.ROUTE_LAUNCHES)
             got = mb.mbconv_fused_cuda(x, p)
             again = mb.mbconv_fused_cuda(x, p)
+            routed = {r: v - routes.get(r, 0) for r, v in mb.ROUTE_LAUNCHES.items()
+                      if v != routes.get(r, 0)}
             ref = mb.mbconv_fused_plain(x, p)
             torch.cuda.synchronize()
-            same = torch.equal(got, again)
+            same = torch.equal(got, again) and routed == {want: 2}
             top = ref.float().abs().max().item()
             err = (got.float() - ref.float()).abs().max().item()
             ok = same and bool(torch.isfinite(got).all().item()) \
@@ -1035,7 +1044,7 @@ def check_k9(probe, b0):
             del got, again, ref
             line = (f"K9 {name} {label} x=({n},{hw},{hw},{cin}) mid={mid} rd={rd} k={k}: "
                     f"max_abs_err={err:.3e} (tol {MBCONV_TOLERANCE[name]:g} x max|y| {top:.3e}), "
-                    f"bit-equal twice={same}")
+                    f"bit-equal twice and route {want}={same}")
             if n == EFFNET_BATCH:
                 worst_bf16 = max(worst_bf16, err)
                 k_ms = median_ms(lambda: mb.mbconv_fused_cuda(x, p))
@@ -1056,7 +1065,8 @@ def check_k9(probe, b0):
                                                          for t in p.values())
                 flops = probe.flops(n, hw, cin, mid, k)
                 b_ms, by = bound_ms(nbytes, flops, "bfloat16")
-                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} {lib_name}={lib_ms:.4f} "
+                line += (f" route={want} plan={mb.plan_cluster(hw, hw, cin, mid, rd, k)}"
+                         f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} {lib_name}={lib_ms:.4f} "
                          f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB, "
                          f"{flops / 1e9:.2f} GFLOP) TFLOP/s={flops / k_ms / 1e9:.2f}")
                 if block is not None:
@@ -1067,6 +1077,29 @@ def check_k9(probe, b0):
             if not ok:
                 failures.append(line)
             del x
+    # bf16 where y hangs on the SE mean over the whole image (a strip's own
+    # mean, the wrong rank's or the wrong count would show), at B0's shapes
+    # whose image a cluster of 2 to 8 blocks holds
+    for hw, cin, mid, rd, k in sorted({shape for _, _, _, shape in b0}):
+        strips = mb.plan_cluster(hw, hw, cin, mid, rd, k).strips
+        if strips == 1:
+            continue
+        x, p = probe.make_se_case(np.random.default_rng(11), CHECK_BATCH, hw, hw, cin, mid, rd,
+                                  k, device, torch.bfloat16)
+        routes = dict(mb.ROUTE_LAUNCHES)
+        got, again = mb.mbconv_fused_cuda(x, p), mb.mbconv_fused_cuda(x, p)
+        ref = mb.mbconv_fused_plain(x, p)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again) and mb.ROUTE_LAUNCHES["cluster"] == routes.get(
+            "cluster", 0) + 2
+        top = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        line = (f"K9 bfloat16 SE mean across {strips} strips x=({CHECK_BATCH},{hw},{hw},{cin}) "
+                f"mid={mid} k={k}: max_abs_err={err:.3e} (tol {MBCONV_TOLERANCE['bfloat16']:g} "
+                f"x max|y| {top:.3e}), bit-equal twice and route cluster={same}")
+        print(line, flush=True)
+        if not (same and err <= MBCONV_TOLERANCE["bfloat16"] * top):
+            failures.append(line)
     if failures:
         fail("K9 disagrees with its plain version or with itself: " + "; ".join(failures))
     total_bound, bound_by = bound_ms(record["bytes"], record["flops"], "bfloat16")
@@ -1084,7 +1117,8 @@ def check_k9(probe, b0):
 def run_mbconv_path(probe, b0, records):
     """The op path of K9: B0's nine blocks at batch 256 in bf16 through
     ``mbconv_fused`` with their folded parameters, each held to the block's
-    own eval forward in f32 (2^-7 of its largest output: one bf16 ulp)."""
+    own eval forward in f32 (2^-7 of its largest output: one bf16 ulp); all
+    nine launches by the one-launch cluster route."""
     import numpy as np
     import torch
     from torchok_tpu_torch.ops import mbconv_fused as mb
@@ -1095,10 +1129,12 @@ def run_mbconv_path(probe, b0, records):
               for _, _, _, (hw, cin, _, _, _) in b0]
     torch.cuda.synchronize()
     LAUNCHES.clear()
+    mb.ROUTE_LAUNCHES.clear()
     with torch.inference_mode():
         outs = [mb.mbconv_fused(x, p) for x, (_, _, p, _) in zip(inputs, b0)]
     torch.cuda.synchronize()
     counts = launch_counts()
+    routes = {r: v for r, v in mb.ROUTE_LAUNCHES.items() if v}
     for x, y, (name, block, _, (hw, cin, mid, _, k)) in zip(inputs, outs, b0):
         ref = probe.block_reference(block, x)
         top = ref.abs().max().item()
@@ -1109,6 +1145,9 @@ def run_mbconv_path(probe, b0, records):
         if not (err <= probe.BLOCK_TOLERANCE * top and bool(torch.isfinite(y).all().item())):
             fail(f"mbconv_fused differs from B0's {name} eval forward: {err:.3e}")
     require_launches("mbconv_fused op path", counts, {mb.KERNEL: len(b0)})
+    print(f"mbconv_fused op path: launches by route {routes}", flush=True)
+    if routes != {"cluster": len(b0)}:
+        fail(f"mbconv_fused op path: B0's nine blocks must take the cluster route, got {routes}")
     records[mb.KERNEL]["launches"] += counts[mb.KERNEL]
 
 
@@ -1548,6 +1587,22 @@ def check_mma_build(kind, library, needle, route):
                  f"kernels, got {routes}")
 
 
+def check_k9_build():
+    """K9's bf16 cluster kernels (k = 1, 3, 5, 7): registers and spills, and
+    HMMA (mma.sync) in their SASS."""
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    usage = ptxas_usage(mb.KERNEL, "mbconv_cluster_kernel")
+    for name, regs, stores, loads in usage:
+        print(f"K9 cluster {name}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B", flush=True)
+    sass = {n: t for n, t in sass_functions(mb.KERNEL).items() if "mbconv_cluster_kernel" in n}
+    with_hmma = sorted(n for n, t in sass.items() if "HMMA" in t)
+    print(f"K9 SASS has HMMA in {len(with_hmma)} of its {len(sass)} cluster kernels", flush=True)
+    if len(usage) != 4 or len(sass) != 4 or len(with_hmma) != 4:
+        fail(f"K9's cluster kernels: {len(usage)} in the build log, {len(sass)} in the SASS, "
+             f"{len(with_hmma)} with HMMA (expected 4 each)")
+
+
 def run_swinv2_variants(records):
     """Every registered SwinV2 variant at its own input size, batch 1, bf16
     autocast, random weights from a seed: one K1 launch per block (windows 6
@@ -1624,6 +1679,7 @@ def main() -> None:
     # masked and unmasked
     check_mma_build("K1", swin.KERNEL, "swin_fwd_kernel", swin.forward_route)
     check_mma_build("K2", swin.KERNEL_BWD, "swin_bwd_", swin.backward_route)
+    check_k9_build()
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()

@@ -671,14 +671,29 @@ def test_conv3x3_gemm_bf16_path_runs_wgmma(cuda_device):
 # ---------------------------------------------------------------------------
 # (N, H, W, C, mid, rd, k): the probe's two shapes at batch 256 and
 # EfficientNet-B0's nine blocks of the kernel's form (ir, stride 1, C in = C
-# out, SE; rd from C / 4) at batch 8, then ragged and small ones
+# out, SE; rd from C / 4; five distinct shapes) at batch 8, then ragged and
+# small ones: "ragged" has mid 40 (not a multiple of 16), "ragged_strips" four
+# strips of 6 rows, the last of 5, at W 23, "k7_strips" eight strips, the last
+# of 3 rows, at k 7, W 45 and C 24 (channels padded to 32), "c24_9x9" C 24 in
+# one block of 9 rows, "mid384_28" a bf16 image that takes the three launches
+# (4 strips of 7 rows do not fit a block, 8 strips of 28 rows would leave one
+# empty)
 MBCONV_SHAPES = {
     "probe_56": (256, 56, 56, 24, 144, 6, 3), "probe_14": (256, 14, 14, 112, 672, 28, 5),
     "b0_1_1": (8, 56, 56, 24, 144, 8, 3), "b0_2_1": (8, 28, 28, 40, 240, 16, 5),
     "b0_3_x": (8, 14, 14, 80, 480, 24, 3), "b0_4_x": (8, 14, 14, 112, 672, 32, 5),
     "b0_5_x": (8, 7, 7, 192, 1152, 48, 5), "ragged": (3, 9, 13, 24, 40, 6, 5),
     "k7": (2, 10, 6, 16, 32, 8, 7), "k1": (2, 5, 11, 8, 16, 4, 1),
+    "ragged_strips": (2, 23, 23, 48, 288, 12, 5), "k7_strips": (2, 45, 45, 24, 144, 6, 7),
+    "c24_9x9": (3, 9, 9, 24, 96, 6, 5), "mid384_28": (2, 28, 28, 64, 384, 16, 5),
 }
+# the route each shape takes in bf16 (f32 always takes the three launches),
+# and the cluster route's strips
+MBCONV_BF16_ROUTE = {shape: ("three_launch" if shape in ("ragged", "mid384_28") else "cluster")
+                     for shape in MBCONV_SHAPES}
+MBCONV_STRIPS = {"probe_56": 8, "probe_14": 2, "b0_1_1": 8, "b0_2_1": 4, "b0_3_x": 2,
+                 "b0_4_x": 2, "b0_5_x": 1, "k7": 1, "k1": 1, "ragged_strips": 4,
+                 "k7_strips": 8, "c24_9x9": 1}
 
 
 def _mbconv_inputs(device, dtype, n, h, w, c, mid, rd, k, seed=9):
@@ -703,19 +718,62 @@ def test_mbconv_fused_kernel_matches_plain_and_is_bit_equal_twice(cuda_device, d
     if dtype == torch.float32 and n > 8:
         n = 8  # f32 at the probe's shapes: batch 8, as chip_smoke.py
     x, p = _mbconv_inputs(cuda_device, dtype, n, h, w, c, mid, rd, k)
+    want = MBCONV_BF16_ROUTE[shape] if dtype == torch.bfloat16 else "three_launch"
+    assert mb.route(h, w, c, mid, rd, k, dtype) == want
+    if want == "cluster":
+        assert mb.plan_cluster(h, w, c, mid, rd, k).strips == MBCONV_STRIPS[shape]
     before = ops.LAUNCHES[mb.KERNEL]
+    routes = dict(mb.ROUTE_LAUNCHES)
     got = mb.mbconv_fused(x, p)
     again = mb.mbconv_fused_cuda(x, p)
     ref = mb.mbconv_fused_plain(x, p)
     torch.cuda.synchronize()
     assert ops.LAUNCHES[mb.KERNEL] == before + 2
+    assert mb.ROUTE_LAUNCHES[want] == routes.get(want, 0) + 2
+    assert sum(mb.ROUTE_LAUNCHES.values()) == sum(routes.values()) + 2
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.equal(got, again)
     assert bool(torch.isfinite(got).all())
-    # f32 sums in other orders (f32), or one bf16 ulp where the two f32
-    # results fall on either side of a rounding boundary (bf16)
+    # f32 sums in other orders (f32); in bf16 one ulp where the two f32
+    # results fall on either side of a rounding boundary, and on the cluster
+    # route the bf16 operands of its products (w_exp, act, gate * w_proj)
     top = ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= rel * top
+
+
+# the shapes above whose cluster holds an image in 2, 4 or 8 strips (ragged
+# strips and k 7 among them), at batch 2
+MBCONV_SE_SHAPES = ("b0_3_x", "b0_2_1", "b0_1_1", "ragged_strips", "k7_strips")
+
+
+@pytest.mark.parametrize("shape", MBCONV_SE_SHAPES)
+def test_mbconv_fused_cluster_takes_the_se_mean_across_its_strips(cuda_device, shape):
+    """bf16 on the cluster route where y hangs on the SE mean over the whole
+    image (``tools/probe_torch_mbconv_fused.py::make_se_case``: a strip's own
+    mean, the wrong rank's or the wrong count moves y by more than four
+    times the tolerance, as a CPU test of the plain version shows), within
+    2^-7 x max|y| of the plain version and bit-equal twice."""
+    import importlib.util
+    from pathlib import Path
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    path = Path(__file__).resolve().parent.parent / "tools" / "probe_torch_mbconv_fused.py"
+    spec = importlib.util.spec_from_file_location("probe_torch_mbconv_fused", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    _, h, w, c, mid, rd, k = MBCONV_SHAPES[shape]
+    assert mb.route(h, w, c, mid, rd, k, torch.bfloat16) == "cluster"
+    assert mb.plan_cluster(h, w, c, mid, rd, k).strips == MBCONV_STRIPS[shape] > 1
+    x, p = probe.make_se_case(np.random.default_rng(11), 2, h, w, c, mid, rd, k, cuda_device,
+                              torch.bfloat16)
+    routes = dict(mb.ROUTE_LAUNCHES)
+    got = mb.mbconv_fused_cuda(x, p)
+    again = mb.mbconv_fused_cuda(x, p)
+    ref = mb.mbconv_fused_plain(x, p)
+    torch.cuda.synchronize()
+    assert mb.ROUTE_LAUNCHES["cluster"] == routes.get("cluster", 0) + 2
+    assert torch.equal(got, again)
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * top
 
 
 def test_mbconv_fused_kernel_reads_a_channels_last_view(cuda_device):
@@ -739,3 +797,37 @@ def test_mbconv_fused_kernel_refuses_what_it_does_not_take(cuda_device):
         mb.mbconv_fused_cuda(x.clone().requires_grad_(True), p)
     with pytest.raises(ValueError, match="odd"):
         mb.mbconv_fused_cuda(x, {**p, "w_dw": torch.zeros((4, 4, 48), device=cuda_device)})
+
+
+def test_mbconv_fused_cluster_route_runs_mma_sync(cuda_device):
+    """The SASS of the cluster route's four instantiations (k = 1, 3, 5, 7)
+    holds HMMA, the tensor cores' mma.sync."""
+    import shutil
+    import subprocess
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    from torchok_tpu_torch.utils.cuda_build import library_path, load_library
+    load_library(mb.KERNEL)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path(mb.KERNEL))],
+                          capture_output=True, text=True, check=True).stdout
+    parts = [part for part in sass.split("Function : ")[1:]
+             if "mbconv_cluster_kernel" in part.split("\n", 1)[0]]
+    assert len(parts) == 4 and all("HMMA" in part for part in parts)
+
+
+def test_mbconv_fused_cluster_plan_bytes_are_the_kernels_layout(cuda_device):
+    """``cluster_shared_bytes`` (what the planner fits into a block) equals
+    the shared memory the kernel's own layout carves, at every shape here."""
+    import ctypes
+    from torchok_tpu_torch.ops import mbconv_fused as mb
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    layout = load_function(mb.KERNEL, [ctypes.c_int] * 8, "mbconv_fused_cluster_bytes")
+    shapes = [(h, w, c, mid, rd, k) for _, h, w, c, mid, rd, k in MBCONV_SHAPES.values()]
+    for h, w, c, mid, rd, k in shapes + [(57, 57, 24, 144, 6, 3), (3, 5, 8, 16, 4, 7)]:
+        cut = mb.plan_cluster(h, w, c, mid, rd, k)
+        if cut is not None:
+            assert layout(h, w, c, mid, k, cut.rows, cut.chunk, cut.kc) == cut.bytes
+            for chunk, kc in ((16, 16), (16, 64), (32, 48)):
+                if mid % chunk == 0:
+                    assert layout(h, w, c, mid, k, cut.rows, chunk, kc) == \
+                        mb.cluster_shared_bytes(h, w, c, mid, k, cut.rows, chunk, kc)

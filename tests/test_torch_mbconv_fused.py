@@ -215,3 +215,148 @@ def test_the_plan_takes_the_widest_chunk_that_fits_a_block():
     assert mb.plan(14, 14, 112, 672, 5, 2)[:2] == (7, 32)
     with pytest.raises(ValueError, match="fits"):
         mb.plan(8, 4096, 2048, 64, 7, 4)
+
+
+def _registry_k9_shapes(port_probe, size=224):
+    """``(H, W, C, mid, rd, k)`` of every block of K9's form in the
+    EfficientNet and MobileNetV3 registry names at ``size``, read from the
+    blocks built on the meta device. Names of a family whose table differs
+    only in depth have the same widths, so the deepest of them stands for
+    all (each stage's residual blocks share one shape)."""
+    from torchok_tpu_torch.models.backbones import efficientnet, mobilenetv3
+    deepest = {}
+    for family in (efficientnet, mobilenetv3):
+        for name, cfg in family._VARIANTS.items():
+            key = (family.__name__, repr(sorted((k, v) for k, v in cfg.items()
+                                                if k != "depth_mult")))
+            depth = cfg.get("depth_mult", 1.0)
+            if key not in deepest or depth > deepest[key][1]:
+                deepest[key] = (name, depth)
+    shapes = set()
+    with torch.device("meta"):
+        for name, _ in deepest.values():
+            for _, b, (h, w) in port_probe.b0_blocks(BACKBONES.get(name)(), size):
+                shapes.add((h, w, b.conv_pw.in_channels, b.conv_pw.out_channels,
+                            b.se.fc1.out_channels, b.conv_dw.kernel_size[0]))
+    return sorted(shapes)
+
+
+def test_the_cluster_plan_fits_a_block_at_every_registry_shape(port_probe):
+    """At every shape of K9's form that the registry builds (224x224): a
+    plan's strips (at most 8) cover the image with no empty block, its
+    bytes are the layout's and fit a block, and bf16 takes the cluster route
+    exactly where there is a plan; f32 always takes the three launches."""
+    shapes = _registry_k9_shapes(port_probe)
+    b0 = {(56, 56, 24, 144, 8, 3), (28, 28, 40, 240, 16, 5), (14, 14, 80, 480, 24, 3),
+          (14, 14, 112, 672, 32, 5), (7, 7, 192, 1152, 48, 5)}
+    assert b0 <= set(shapes) and len(shapes) > 100
+    planned = 0
+    for h, w, c, mid, rd, k in shapes:
+        cut = mb.plan_cluster(h, w, c, mid, rd, k)
+        assert mb.route(h, w, c, mid, rd, k, torch.float32) == "three_launch"
+        if cut is None:
+            assert mb.route(h, w, c, mid, rd, k, torch.bfloat16) == "three_launch"
+            continue
+        planned += 1
+        assert mb.route(h, w, c, mid, rd, k, torch.bfloat16) == "cluster"
+        assert cut.strips in mb.STRIPS and cut.strips <= 8
+        assert cut.rows * cut.strips >= h > cut.rows * (cut.strips - 1)
+        assert mid % cut.chunk == 0 and c * cut.chunk <= mb.W_EXP_QUADS * 4 * mb.CLUSTER_THREADS
+        assert cut.kc % 16 == 0 and rd <= min(mid, mb.CLUSTER_THREADS)
+        assert cut.bytes == mb.cluster_shared_bytes(h, w, c, mid, k, cut.rows, cut.chunk,
+                                                    cut.kc) <= mb.SHARED_LIMIT
+    assert planned >= 50
+
+
+def test_the_cluster_plan_of_b0s_blocks():
+    """B0's five block shapes: strips of 7 rows (8, 4, 2, 2 and 1 a cluster),
+    and the widest chunk and w_proj stage that fit."""
+    got = {shape: mb.plan_cluster(*shape)[:5] for shape in [
+        (56, 56, 24, 144, 8, 3), (28, 28, 40, 240, 16, 5), (14, 14, 80, 480, 24, 3),
+        (14, 14, 112, 672, 32, 5), (7, 7, 192, 1152, 48, 5)]}
+    assert got == {(56, 56, 24, 144, 8, 3): (8, 7, 16, 64, 8),
+                   (28, 28, 40, 240, 16, 5): (4, 7, 16, 64, 4),
+                   (14, 14, 80, 480, 24, 3): (2, 7, 32, 64, 2),
+                   (14, 14, 112, 672, 32, 5): (2, 7, 32, 32, 2),
+                   (7, 7, 192, 1152, 48, 5): (1, 7, 64, 32, 1)}
+
+
+def test_the_route_sends_f32_and_large_images_to_the_three_launches(port_probe):
+    """f32 at every shape, bf16 where the strips of 8 blocks do not fit (the
+    first block of EfficientNet-B7's 150x150 stage at 600x600), and mid not a
+    multiple of 16 take the three-launch kernel."""
+    with torch.device("meta"):
+        b7 = port_probe.b0_blocks(BACKBONES.get("efficientnet_b7")(), 600)
+    _, block, (h, w) = b7[0]
+    shape = (h, w, block.conv_pw.in_channels, block.conv_pw.out_channels,
+             block.se.fc1.out_channels, block.conv_dw.kernel_size[0])
+    assert shape == (150, 150, 48, 288, 16, 3)
+    assert mb.plan_cluster(*shape) is None
+    assert mb.route(*shape, torch.bfloat16) == "three_launch"
+    assert mb.route(7, 7, 192, 1152, 48, 5, torch.float32) == "three_launch"
+    assert mb.route(7, 7, 192, 1152, 48, 5, torch.bfloat16) == "cluster"
+    assert mb.route(9, 13, 24, 40, 6, 5, torch.bfloat16) == "three_launch"  # mid 40
+
+
+# (n, H, W, C, mid, rd, k) at 2, 4 and 8 strips a cluster, ragged strips and
+# k 7 among them (the cases of the card test
+# test_mbconv_fused_cluster_takes_the_se_mean_across_its_strips)
+SE_STRIP_SHAPES = {
+    "b0_3_x": (2, 14, 14, 80, 480, 24, 3), "b0_2_1": (2, 28, 28, 40, 240, 16, 5),
+    "b0_1_1": (2, 56, 56, 24, 144, 8, 3), "ragged_strips": (2, 23, 23, 48, 288, 12, 5),
+    "k7_strips": (2, 45, 45, 24, 144, 6, 7),
+}
+
+
+def _plain_by_strips(x, p, rows, fault):
+    """The plain version with the SE mean taken as a cluster of strips of
+    ``rows`` rows takes it: each strip's gate from the strips' sums,
+    correctly (``fault`` "none") or with a planted fault: a strip's own sum
+    only ("own"), rank 0's sum read for every rank ("rank"), the image's sum
+    over a strip's pixels ("count")."""
+    import torch.nn.functional as F
+    n, h, w, c, mid, rd, k = mb.block_shape(x, p)
+    q = mb._f32(p, x.device)
+    pad = (k - 1) // 2
+    xf = x.float()
+    a = mb._swish(torch.matmul(xf.reshape(-1, c), q["w_exp"]) * q["s1"] + q["b1"])
+    apad = F.pad(a.reshape(n, h, w, mid), (0, 0, pad, pad, pad, pad))
+    acc = sum(apad[:, dy:dy + h, dx:dx + w, :] * q["w_dw"][dy, dx]
+              for dy in range(k) for dx in range(k))
+    a = mb._swish(acc * q["s2"] + q["b2"])
+    strips = -(-h // rows)
+    sums = torch.stack([a[:, r * rows:(r + 1) * rows].sum((1, 2)) for r in range(strips)], 1)
+    whole = sums.sum(1, keepdim=True).expand(-1, strips, -1)
+    mean = {"none": whole / (h * w), "own": sums / (h * w),
+            "rank": (strips * sums[:, :1]).expand(-1, strips, -1) / (h * w),
+            "count": whole / (rows * w)}[fault]
+    r1 = mb._swish(torch.matmul(mean, q["w_se1"]) + q["b_se1"])
+    gate = torch.sigmoid(torch.matmul(r1, q["w_se2"]) + q["b_se2"])  # (n, strips, mid)
+    a = a * gate.repeat_interleave(rows, 1)[:, :h, None, :]
+    y = torch.matmul(a.reshape(-1, mid), q["w_proj"]) * q["s3"] + q["b3"]
+    return (y.reshape(n, h, w, c) + xf).to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", list(SE_STRIP_SHAPES))
+def test_the_se_case_sees_a_wrong_mean_across_the_strips(port_probe, shape):
+    """Under the probe's ``make_se_case`` law, a cluster that took the SE mean
+    wrongly (its own strip's sum, the wrong rank's, the wrong count) moves y
+    by more than four times the card test's bf16 tolerance (2^-7 x max|y|),
+    where ``make_params``' law hides it; the strips taken correctly give the
+    plain version."""
+    n, h, w, c, mid, rd, k = SE_STRIP_SHAPES[shape]
+    cut = mb.plan_cluster(h, w, c, mid, rd, k)
+    assert cut.strips > 1
+    x, p = port_probe.make_se_case(np.random.default_rng(11), n, h, w, c, mid, rd, k, "cpu",
+                                   torch.float32)
+    ref = mb.mbconv_fused_plain(x, p)
+    tol = 2.0 ** -7 * ref.abs().max().item()
+    assert (_plain_by_strips(x, p, cut.rows, "none") - ref).abs().max().item() <= 1e-3 * tol
+    for fault in ("own", "rank", "count"):
+        assert (_plain_by_strips(x, p, cut.rows, fault) - ref).abs().max().item() > 4 * tol
+    rng = np.random.default_rng(11)
+    x = port_probe.make_input(rng, n, h, c, "cpu", torch.float32)
+    p = port_probe.make_params(rng, c, mid, rd, k, "cpu", torch.float32)
+    ref = mb.mbconv_fused_plain(x, p)
+    assert (_plain_by_strips(x, p, cut.rows, "own") - ref).abs().max().item() < \
+        2.0 ** -7 * ref.abs().max().item()

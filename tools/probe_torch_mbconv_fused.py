@@ -69,6 +69,31 @@ def make_input(rng, n, hw, cin, device, dtype):
         device, dtype)
 
 
+def make_se_case(rng, n, h, w, cin, mid, rd, k, device, dtype):
+    """``(x, p)`` whose output hangs on the SE mean over the whole image: x
+    runs from -2 to +2 down the rows along a random direction of channels
+    (each row strip's own mean differs from the image's), the SE weights
+    scaled by 1 / sqrt(fan in) so that the gate's input is about 1 (the
+    sigmoid neither flat nor saturated, b_se2 = 0), and w_proj so that the
+    gated projection is about as large as x. (Under ``make_params``' law the
+    gate is about sigmoid(b_se2): an error in the mean hardly moves y.)"""
+    def g(*shape, scale):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(
+            device, dtype)
+    ramp = np.linspace(-1.0, 1.0, h, dtype=np.float32)[None, :, None, None]
+    x = 2.0 * ramp * rng.normal(size=(1, 1, 1, cin)) + 0.25 * rng.normal(size=(n, h, w, cin))
+    x = torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+    p = dict(w_exp=g(cin, mid, scale=cin ** -0.5), s1=1.0 + g(1, mid, scale=0.05),
+             b1=g(1, mid, scale=0.05), w_dw=g(k, k, mid, scale=1.0 / k),
+             s2=1.0 + g(1, mid, scale=0.05), b2=g(1, mid, scale=0.05),
+             w_se1=g(mid, rd, scale=4.0 * mid ** -0.5), b_se1=g(1, rd, scale=0.05),
+             w_se2=g(rd, mid, scale=2.0 * rd ** -0.5),
+             b_se2=torch.zeros((1, mid), device=device, dtype=dtype),
+             w_proj=g(mid, cin, scale=2.0 * mid ** -0.5), s3=1.0 + g(1, cin, scale=0.05),
+             b3=g(1, cin, scale=0.05))
+    return x, p
+
+
 def library_weights(p):
     """The parameters as the library calls take them: OIHW conv weights in
     channels-last format, vectors flat."""

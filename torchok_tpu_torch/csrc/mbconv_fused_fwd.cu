@@ -29,6 +29,10 @@
 // halo rows): about 1.8 times the arithmetic of one pass, against the
 // unfused chain's several round trips of the expanded tensor.
 //
+// This is the f32 route. bf16 takes mbconv_fused_cluster.cuh (entry
+// mbconv_fused_cluster_fwd below) wherever ops/mbconv_fused.py::plan_cluster
+// fits an image into a cluster; other bf16 shapes come here too.
+//
 // What bounds it: 13.2 GFLOP against 77 MB at B0's 56x56 block at batch 256
 // (bf16), so the operations do. This first version runs them as f32 FMAs fed
 // from shared memory (8x4 and 4x8 register tiles; the depthwise conv slides
@@ -39,6 +43,8 @@
 // run, so fewer, wider chunks beat two blocks an SM (measured on the H100).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mbconv_fused_cluster.cuh"  // the bf16 route: one launch a block, clusters
 
 namespace {
 
@@ -474,4 +480,51 @@ extern "C" int mbconv_fused_fwd(const void* x, void* y, void* partial, void* gat
   if (dtype == 0) return (int)launch_k<float>(K, x, y, part, g, p, d, st);
   if (dtype == 1) return (int)launch_k<__nv_bfloat16>(K, x, y, part, g, p, d, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 route (mbconv_fused_cluster.cuh): x, y (N, H, W, C) bf16; the
+// parameters f32 as above (w_exp is rounded to bf16 in the kernel). strips
+// blocks of `rows` rows hold an image (a cluster), chunk (16, 32 or 64)
+// expanded channels at a time, kc (16 to 64) rows of w_proj a stage, warps_m
+// x (16 / warps_m) warps over y's tiles; all from
+// ops/mbconv_fused.py::plan_cluster. Returns the launch's CUDA error (0 on
+// success).
+extern "C" int mbconv_fused_cluster_fwd(const void* x, void* y, const void* w_exp,
+                                        const void* s1, const void* b1, const void* w_dw,
+                                        const void* s2, const void* b2, const void* w_se1,
+                                        const void* b_se1, const void* w_se2, const void* b_se2,
+                                        const void* w_proj, const void* s3, const void* b3, int N,
+                                        int H, int W, int C, int mid, int rd, int K, int strips,
+                                        int rows, int chunk, int kc, int warps_m,
+                                        void* stream) {
+  namespace mc = mbconv_cluster;
+  using mc::bf16;
+  if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 8 || C % 8 != 0 || mid < 16 ||
+      mid % 16 != 0 || rd < 1 || rd > mid || rd > mc::kThreads || strips < 1 ||
+      strips > mc::kMaxStrips || rows < 1 || rows * strips < H || rows * (strips - 1) >= H ||
+      (chunk != 16 && chunk != 32 && chunk != 64) || mid % chunk != 0 || kc < 16 || kc > 64 ||
+      kc % 16 != 0 ||
+      (warps_m != 1 && warps_m != 2 && warps_m != 4 && warps_m != 8 && warps_m != 16) ||
+      !mc::fits_warps(rows, W, C, warps_m) || C * chunk > mc::kQuads * 4 * mc::kThreads ||
+      (long long)H * W * C > 2147483647LL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const mc::Params p{static_cast<const float*>(w_exp),    static_cast<const float*>(s1),
+                     static_cast<const float*>(b1),      static_cast<const float*>(w_dw),
+                     static_cast<const float*>(s2),      static_cast<const float*>(b2),
+                     static_cast<const float*>(w_se1), static_cast<const float*>(b_se1),
+                     static_cast<const float*>(w_se2),   static_cast<const float*>(b_se2),
+                     static_cast<const float*>(w_proj),  static_cast<const float*>(s3),
+                     static_cast<const float*>(b3)};
+  const mc::Dims d{N, H, W, C, mid, rd, rows, chunk, kc, strips, warps_m};
+  return (int)mc::launch_k(K, static_cast<const bf16*>(x), static_cast<bf16*>(y), p, d,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory of a block of the bf16 route (Layout in
+// mbconv_fused_cluster.cuh), which ops/mbconv_fused.py::cluster_shared_bytes
+// must reproduce.
+extern "C" int mbconv_fused_cluster_bytes(int H, int W, int C, int mid, int K, int rows,
+                                          int chunk, int kc) {
+  return (int)mbconv_cluster::Layout(H, W, C, mid, K, rows, chunk, kc).total;
 }
