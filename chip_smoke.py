@@ -7,10 +7,12 @@
 2. Builds the port's ten CUDA kernels from ``torchok_tpu_torch/csrc`` with
    nvcc, one compiler per source, side by side, and prints each kernel's
    registers and spills; for K1's bf16 tensor-core kernel
-   (``csrc/swin_attention_fwd_mma.cuh``) and K2's two passes
-   (``csrc/swin_attention_bwd_mma.cuh``) their registers and spill bytes,
-   that ``cuobjdump -sass`` finds HMMA in each, and the route each window
-   size takes per dtype (bf16 must take ``mma``).
+   (``csrc/swin_attention_fwd_mma.cuh``) and the two passes of the
+   tensor-core backward (``csrc/swin_attention_bwd_mma.cuh``) in each of its
+   instantiations (K2's cosine mode, K3b's plain local mode with and without
+   a bias, K5's global-query mode) their registers and spill bytes, that
+   ``cuobjdump -sass`` finds HMMA in each, and the route each window size
+   takes per dtype (bf16 must take ``mma``, f32 the FMA kernels).
 3. Holds each kernel against its plain PyTorch version on the card and times
    kernel, plain version and the closest library call
    (``F.scaled_dot_product_attention`` on prepared windows; for a backward
@@ -27,7 +29,9 @@
      local shapes (windows 7/7/14/7, with the bias) and davit_t's four
      (window 7, no bias); K4/K5 (global-query attention, forward/backward)
      at gcvit_tiny's four; batch 8 in f32 and batch 128 in bf16, the same
-     tolerances, backward kernels bit-equal between two launches.
+     tolerances, backward kernels bit-equal between two launches and on the
+     route printed per shape (bf16 the tensor-core backward, f32 the FMA
+     template), by the launches counted per route.
    * K6 (cosine attention on pre-partitioned head-major windows) at
      swinv2_tiny's four window shapes, masked and unmasked: f32 at batch 8
      <= 1e-4, bf16 at batch 128 <= 2e-2 (one bf16 ulp of the largest output).
@@ -81,7 +85,8 @@
      ``GCVIT_TRAIN_CONFIG``, ``DAVIT_TRAIN_CONFIG`` with the train set cut to
      one batch repeated for 10 one-step epochs, one sanity and one final
      validation batch): per step 12 K1 + 12 K2 (both SwinV2s), or
-     17 K3a + 14 K4 + 17 K3b + 14 K5, or 6 K3a + 6 K3b (davit_t); every loss
+     17 K3a + 14 K4 + 17 K3b + 14 K5, or 6 K3a + 6 K3b (davit_t), the K3b
+     and K5 launches all on the tensor-core route; every loss
      finite and the last below the first; the validation metrics reported;
      every parameter finite and the named ones moved;
    * ResNet-50 (``RESNET_SLICE_CONFIG``, ``RESNET_TRAIN_CONFIG``, 224x224,
@@ -559,11 +564,20 @@ def check_dot(kind, cases, timing=True):
         name = str(dtype).split(".")[-1]
         for idx, (label, (hp, wp, c, heads, ws), with_bias, n, counts) in enumerate(cases):
             inputs = dot_inputs(batch, hp, wp, c, heads, ws, dtype, parts, with_bias, 20 + idx)
+            before = dict(dot.ROUTE_LAUNCHES)
             got = call(wrapper, *inputs, ws, heads)
             again = call(wrapper, *inputs, ws, heads) if backward else got
+            routed = {k: v - before.get(k, 0) for k, v in dot.ROUTE_LAUNCHES.items()
+                      if v != before.get(k, 0)}
             ref = call(plain, *inputs, ws, heads)
             torch.cuda.synchronize()
             ok = all(torch.equal(a, b) for a, b in zip(got, again))
+            route = ""
+            if backward:  # bf16 on the tensor cores, f32 on the FMA template
+                route = dot.backward_route(source, dtype)
+                want = "mma" if dtype == torch.bfloat16 else "templates"
+                ok = ok and route == want and routed == {(source, route): 2}
+                route = f" route {route}"
             ok = ok and all(bool(torch.isfinite(t).all().item()) for t in got)
             parts_txt = []
             for key, g, r in zip((k for k in names if with_bias or k != "dbias"), got, ref):
@@ -581,7 +595,7 @@ def check_dot(kind, cases, timing=True):
             del got, again, ref
             width = parts * c
             line = (f"{kind} {name} B{batch} {label} proj=({batch},{hp},{wp},{width}) "
-                    f"heads={heads} ws={ws} bias={with_bias} x{n}: " + ", ".join(parts_txt)
+                    f"heads={heads} ws={ws} bias={with_bias} x{n}{route}: " + ", ".join(parts_txt)
                     + (", bit-equal twice" if backward else ""))
             if timing:
                 iters = TIMING_ITERS if batch > CHECK_BATCH else TIMING_ITERS_SMALL
@@ -1394,13 +1408,17 @@ def smoke_train_config(epochs: int, config=None, size: int = 256, batch: int = 1
     return cfg
 
 
-def run_train_slice(label, config, size, per_forward, per_backward, must_move, records):
+def run_train_slice(label, config, size, per_forward, per_backward, must_move, records,
+                    per_route=None):
     """The train slice of one model: ``per_forward`` / ``per_backward`` map
     each kernel to its launches per forward / per train step; ``must_move``
-    lists name fragments of parameters that have to change."""
+    lists name fragments of parameters that have to change; ``per_route``,
+    if given, maps each (K3b or K5 kernel, route) to its launches per train
+    step (``ops.window_attention_dot.ROUTE_LAUNCHES``)."""
     import torch
     from torchok_tpu_torch.__main__ import run
     from torchok_tpu_torch.engine.callbacks import Callback
+    from torchok_tpu_torch.ops import window_attention_dot as dot
     from torchok_tpu_torch.ops.common import LAUNCHES
 
     class Recorder(Callback):
@@ -1423,10 +1441,12 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
     recorder = Recorder()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    dot.ROUTE_LAUNCHES.clear()
     trainer, logs = run(smoke_train_config(TRAIN_STEPS, config, size, batch), "train",
                         [recorder])
     torch.cuda.synchronize()
     counts = launch_counts()
+    routes = {k: v for k, v in dot.ROUTE_LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated()
     stats = trainer.last_fit
     losses = [e["train/loss"] for e in recorder.epochs]
@@ -1436,6 +1456,11 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
           f"read-back, one step per epoch); peak device memory {peak / 2**20:.1f} MiB; "
           f"launches {counts}", flush=True)
     print(f"{label} train losses per step: " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    if per_route is not None:
+        print(f"{label} train K3b/K5 launches by route: {routes}", flush=True)
+        if routes != {k: n * TRAIN_STEPS for k, n in per_route.items() if n}:
+            fail(f"{label} train: expected K3b/K5 launches by route "
+                 f"{ {k: n * TRAIN_STEPS for k, n in per_route.items()} }, got {routes}")
     print(f"{label} last epoch logs: {logs}", flush=True)
 
     eval_batches = 2  # one sanity batch, one validation batch after the last epoch
@@ -1559,12 +1584,13 @@ def ptxas_usage(kernel, needle):
     return found
 
 
-def check_mma_build(kind, library, needle, route):
-    """The bf16 tensor-core kernels of K1 or K2 (the four instantiations
-    whose names hold ``needle`` in ``library``'s build): registers and
-    spills, HMMA in their SASS, and the route each window size takes per
-    dtype (``route``: bf16 on the tensor-core kernel, f32 on the FMA
-    templates or the key-tiled path)."""
+def check_mma_build(kind, library, needle, route, count=4, windows=None):
+    """The bf16 tensor-core kernels of K1, K2, K3b or K5 (the ``count``
+    instantiations whose names hold ``needle`` in ``library``'s build):
+    registers and spills, HMMA in their SASS, and the route each window size
+    (by default those of ``SWIN_MODELS``) takes per dtype (``route``: bf16
+    on the tensor-core kernel, f32 on the FMA templates or the key-tiled
+    path)."""
     import torch
     usage = ptxas_usage(library, needle)
     for name, regs, stores, loads in usage:
@@ -1574,10 +1600,11 @@ def check_mma_build(kind, library, needle, route):
     with_hmma = sorted(n for n, t in sass.items() if "HMMA" in t)
     print(f"{kind} SASS has HMMA in {len(with_hmma)} of its {len(sass)} tensor-core kernels",
           flush=True)
-    if len(usage) != 4 or len(sass) != 4 or len(with_hmma) != 4:
+    if len(usage) != count or len(sass) != count or len(with_hmma) != count:
         fail(f"{kind}'s tensor-core kernels: {len(usage)} in the build log, {len(sass)} in the "
-             f"SASS, {len(with_hmma)} with HMMA (expected 4 each)")
-    windows = sorted({st[4] for _, stages in SWIN_MODELS.values() for st in stages})
+             f"SASS, {len(with_hmma)} with HMMA (expected {count} each)")
+    if windows is None:
+        windows = sorted({st[4] for _, stages in SWIN_MODELS.values() for st in stages})
     for ws in windows:
         routes = {dtype_name(t): route(t, ws) for t in (torch.bfloat16, torch.float32)}
         print(f"{kind} route L={ws * ws} (ws {ws}): bf16 {routes['bfloat16']}, "
@@ -1678,7 +1705,14 @@ def main() -> None:
     # K1: swin_fwd_kernel<tile rows / 16, images a block>; K2: its two passes,
     # masked and unmasked
     check_mma_build("K1", swin.KERNEL, "swin_fwd_kernel", swin.forward_route)
-    check_mma_build("K2", swin.KERNEL_BWD, "swin_bwd_", swin.backward_route)
+    # the tensor-core backward's passes: bwd_{dq,dkdv}_kernel<kCosine, kShifted,
+    # kHasBias, kGlobal>, K2 masked and unmasked, K3b with and without a bias, K5
+    check_mma_build("K2", swin.KERNEL_BWD, "bwd_d", swin.backward_route)
+    dot_windows = sorted({st[4] for st in GCVIT_STAGES + DAVIT_STAGES})
+    for kind, kernel, count in (("K3b", dot.KERNEL_BWD, 4), ("K5", dot.KERNEL_GLOBAL_BWD, 2)):
+        check_mma_build(kind, kernel, "bwd_d",
+                        lambda dtype, ws, k=kernel: dot.backward_route(k, dtype), count,
+                        dot_windows)
     check_k9_build()
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
@@ -1715,11 +1749,14 @@ def main() -> None:
     # stages.0.blocks.1 is a global block: its qkv emits k and v only
     run_train_slice("gcvit_tiny", GCVIT_TRAIN_CONFIG, 224, gcvit_fwd, gcvit_bwd,
                     ("relative_position_bias_table", "stages.0.blocks.1.attn.qkv",
-                     "global_block"), records)
+                     "global_block"), records,
+                    {(dot.KERNEL_BWD, "mma"): GCVIT_LOCAL,
+                     (dot.KERNEL_GLOBAL_BWD, "mma"): GCVIT_GLOBAL})
     gradient_reference("gcvit_tiny", GCVIT_TRAIN_CONFIG, 224, {**gcvit_fwd, **gcvit_bwd},
                        "relative_position_bias_table")
     run_train_slice("davit_t", DAVIT_TRAIN_CONFIG, 224, {dot.KERNEL: DAVIT_SPATIAL},
-                    {dot.KERNEL_BWD: DAVIT_SPATIAL}, ("main_blocks.0.0.0.attn.qkv",), records)
+                    {dot.KERNEL_BWD: DAVIT_SPATIAL}, ("main_blocks.0.0.0.attn.qkv",), records,
+                    {(dot.KERNEL_BWD, "mma"): DAVIT_SPATIAL})
 
     # the JAX ResNet reaches no Pallas kernel, so the port's reaches none of
     # the hand-written kernels: every counter stays at 0 through these runs

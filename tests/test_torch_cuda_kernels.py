@@ -315,8 +315,15 @@ DOT_SHAPES = {"ws7": (14, 21, 3, 7), "ws14": (14, 14, 2, 14), "ws8": (16, 8, 2, 
               "ws16": (16, 16, 1, 16)}
 
 
+# (Hp, Wp, heads, ws) of gcvit_tiny's four stages at 224x224 (local and
+# global blocks) and davit_t's (spatial blocks, no bias)
+STAGE_SHAPES = {"gcvit1": (56, 56, 2, 7), "gcvit2": (28, 28, 4, 7), "gcvit3": (14, 14, 8, 14),
+                "gcvit4": (7, 7, 16, 7), "davit1": (56, 56, 3, 7), "davit2": (28, 28, 6, 7),
+                "davit3": (14, 14, 12, 7), "davit4": (7, 7, 24, 7)}
+
+
 def _dot_inputs(device, dtype, shape, parts, with_bias=True, b=3, seed=5):
-    hp, wp, heads, ws = DOT_SHAPES[shape]
+    hp, wp, heads, ws = {**DOT_SHAPES, **STAGE_SHAPES}[shape]
     rng = np.random.default_rng(seed)
     c, L = heads * 32, ws * ws
 
@@ -424,6 +431,140 @@ def test_window_attention_kernels_refuse_what_they_do_not_take(cuda_device):
                                       scale[:1], None, 7, 1)
     with pytest.raises(ValueError, match="dout has shape"):
         dot.window_attention_global_bwd_cuda(proj, qg, scale, bias, dout[:1], ws, heads)
+
+
+# bf16 as chip_smoke.DOT_BWD_TOLERANCE: dproj, dqg, dbias, each a fraction
+# of the reference's largest magnitude
+DOT_BWD_BF16 = (2e-2, 2.0 ** -8, 1e-3)
+
+
+def _stage_inputs(device, stage, mode, b=4, dtype=torch.bfloat16):
+    """Inputs at a gcvit_tiny or davit_t stage shape; ``mode`` bias, nobias
+    or global."""
+    return _dot_inputs(device, dtype, stage, 2 if mode == "global" else 3, mode != "nobias", b,
+                       seed=8)
+
+
+def _dot_bwd(fn_local, fn_global, proj, qg, scale, bias, dout, ws, heads):
+    """(dproj, dqg or None, dbias or None) of a local or global backward."""
+    if qg is None:
+        dqkv, dbias = fn_local(proj, scale, bias, dout, ws, heads)
+        return dqkv, None, dbias
+    return fn_global(proj, qg, scale, bias, dout, ws, heads)
+
+
+def _dot_bwd_ratios(got, ref, tols):
+    """Each output's largest error over its tolerance (a fraction of the
+    reference's largest magnitude); None where there is no output."""
+    return [None if g is None else (g.float() - r.float()).abs().max().item()
+            / (tol * r.float().abs().max().item()) for g, r, tol in zip(got, ref, tols)]
+
+
+def _dot_bwd_within(got, ref, tols):
+    """Whether every output of ``got`` lies within its tolerance of ``ref``."""
+    return all(x is None or x <= 1.0 for x in _dot_bwd_ratios(got, ref, tols))
+
+
+STAGE_CASES = [(stage, mode) for stage in STAGE_SHAPES if stage.startswith("gcvit")
+               for mode in ("bias", "global")] + \
+    [(stage, "nobias") for stage in STAGE_SHAPES if stage.startswith("davit")]
+
+
+@pytest.mark.parametrize("stage,mode", STAGE_CASES)
+def test_window_attention_bwd_bf16_takes_the_tensor_cores_at_every_stage(cuda_device, stage,
+                                                                        mode):
+    """bf16 K3b (gcvit_tiny's local blocks with a bias, davit_t's without)
+    and K5 (gcvit_tiny's global blocks) at every stage shape: the
+    tensor-core route by the launches counted per route, bit-equal twice,
+    within the card's tolerances of the plain versions."""
+    args = _stage_inputs(cuda_device, stage, mode)
+    kernel = dot.KERNEL_GLOBAL_BWD if mode == "global" else dot.KERNEL_BWD
+    before = dict(dot.ROUTE_LAUNCHES)
+    got = _dot_bwd(dot.window_attention_bwd_cuda, dot.window_attention_global_bwd_cuda, *args)
+    again = _dot_bwd(dot.window_attention_bwd_cuda, dot.window_attention_global_bwd_cuda, *args)
+    ref = _dot_bwd(dot.window_attention_bwd_plain, dot.window_attention_global_bwd_plain, *args)
+    torch.cuda.synchronize()
+    assert dot.ROUTE_LAUNCHES[(kernel, "mma")] == before.get((kernel, "mma"), 0) + 2
+    assert sum(dot.ROUTE_LAUNCHES.values()) == sum(before.values()) + 2
+    assert dot.backward_route(kernel, torch.bfloat16) == "mma"
+    for g, a in zip(got, again):
+        assert (g is None) == (a is None) and (g is None or torch.equal(g, a))
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == args[0].shape
+    assert (got[2] is None) == (mode == "nobias")
+    assert _dot_bwd_within(got, ref, DOT_BWD_BF16)
+
+
+@pytest.mark.parametrize("mode", ["bias", "nobias", "global"])
+def test_window_attention_bwd_f32_stays_on_the_template(cuda_device, mode):
+    """f32 K3b and K5 take the FMA template, by the launches counted per
+    route and by the route the library reports."""
+    args = _stage_inputs(cuda_device, "gcvit2" if mode != "nobias" else "davit2", mode, b=2,
+                         dtype=torch.float32)
+    kernel = dot.KERNEL_GLOBAL_BWD if mode == "global" else dot.KERNEL_BWD
+    before = dict(dot.ROUTE_LAUNCHES)
+    got = _dot_bwd(dot.window_attention_bwd_cuda, dot.window_attention_global_bwd_cuda, *args)
+    ref = _dot_bwd(dot.window_attention_bwd_plain, dot.window_attention_global_bwd_plain, *args)
+    torch.cuda.synchronize()
+    assert dot.ROUTE_LAUNCHES[(kernel, "templates")] == before.get((kernel, "templates"), 0) + 1
+    assert sum(dot.ROUTE_LAUNCHES.values()) == sum(before.values()) + 1
+    assert dot.backward_route(kernel, torch.float32) == "templates"
+    assert _dot_bwd_within(got, ref, (1e-4, 1e-4, 1e-3))
+
+
+# the global dq pass's window start; the planted fault below starts dq anew
+# at every window, so that dqg keeps only the last window's dq
+_DQ_WINDOW_START = "    if (within == 0) {  // a window's first step: its do rows have landed\n"
+_DQ_LAST_WINDOW_ONLY = _DQ_WINDOW_START + (
+    "      if (kGlobal)\n"
+    "        for (int n = 0; n < 4; ++n)\n"
+    "          for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;\n")
+
+
+def _build_with_dqg_fault(out_dir):
+    """window_attention_global_bwd built from a copy of the sources whose
+    dqg keeps only the last window's dq; its ``extern "C"`` entry."""
+    import ctypes
+    import shutil
+    import subprocess
+    from torchok_tpu_torch.utils.cuda_build import CSRC, NVCC_FLAGS, find_nvcc
+    src = out_dir / "csrc"
+    shutil.copytree(CSRC, src)
+    header = src / "swin_attention_bwd_mma.cuh"
+    text = header.read_text()
+    assert text.count(_DQ_WINDOW_START) == 1
+    header.write_text(text.replace(_DQ_WINDOW_START, _DQ_LAST_WINDOW_ONLY))
+    lib = out_dir / "libfault.so"
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib),
+                    str(src / f"{dot.KERNEL_GLOBAL_BWD}.cu")], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(lib)), dot.KERNEL_GLOBAL_BWD)
+    fn.argtypes = dot._ARGTYPES[dot.KERNEL_GLOBAL_BWD]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def test_window_attention_global_bwd_check_sees_a_wrong_window_sum(cuda_device, tmp_path,
+                                                                   monkeypatch):
+    """A K5 whose dqg keeps only the last window's dq (the fault planted in a
+    copy of the header) fails the bf16 check at gcvit_tiny's stages with
+    several windows, which the package's K5 passes on the same inputs."""
+    fault = _build_with_dqg_fault(tmp_path)
+    function = dot._function
+    for stage in ("gcvit1", "gcvit2"):
+        args = _stage_inputs(cuda_device, stage, "global", b=2)
+        ref = _dot_bwd(None, dot.window_attention_global_bwd_plain, *args)
+        assert _dot_bwd_within(_dot_bwd(None, dot.window_attention_global_bwd_cuda, *args), ref,
+                               DOT_BWD_BF16)
+        monkeypatch.setattr(dot, "_function",
+                            lambda name: fault if name == dot.KERNEL_GLOBAL_BWD else function(name))
+        got = _dot_bwd(None, dot.window_attention_global_bwd_cuda, *args)
+        monkeypatch.setattr(dot, "_function", function)
+        torch.cuda.synchronize()
+        ratios = _dot_bwd_ratios(got, ref, DOT_BWD_BF16)
+        print(f"{stage} with the fault planted: error over tolerance of dkv, dqg, dbias "
+              f"{ratios}")
+        assert not _dot_bwd_within(got, ref, DOT_BWD_BF16)
+        # dkv and dbias do not hang on the fault
+        assert _dot_bwd_within((got[0], None, got[2]), ref, DOT_BWD_BF16)
 
 
 # ---------------------------------------------------------------------------

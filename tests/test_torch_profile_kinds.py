@@ -1,7 +1,8 @@
 """``tools/profile_torch_slice.py`` files each kernel of a trace under its
 kind: the window attention templates by their template flags (``<T, KC,
 kHasBias, kGlobal, kCosine, kHasMask>``), demangled or mangled, K1's
-tensor-core kernel under K1 and K2's tensor-core passes under K2."""
+tensor-core kernel under K1, and the passes of the tensor-core backward
+under K2, K3b or K5 by their mode flags."""
 import importlib.util
 import os
 
@@ -46,9 +47,27 @@ def _tool():
      "K3b window_attention_bwd"),
     ("_ZN5wattn27window_attention_bwd_kernelIfLi16ELb1ELb0ELb1ELb1EEEvPKT_",
      "K2 swin_attention_bwd"),
-    # K2's tensor-core passes, their set-up and the entry's reduce
-    ("void swin_mma::swin_bwd_dkdv_kernel<false>(__nv_bfloat16 const*)", "K2 swin_attention_bwd"),
-    ("void swin_mma::swin_bwd_dq_kernel<true>(__nv_bfloat16 const*)", "K2 swin_attention_bwd"),
+    # the tensor-core backward's passes <kCosine, kShifted, kHasBias,
+    # kGlobal>: K2 (cosine, unshifted and shifted), K3b (with and without a
+    # bias), K5 (global queries), demangled and mangled; K2's set-up and its
+    # entry's reduce
+    ("void swin_mma::bwd_dkdv_kernel<true, false, true, false>(__nv_bfloat16 const*)",
+     "K2 swin_attention_bwd"),
+    ("void swin_mma::bwd_dq_kernel<true, true, true, false>(__nv_bfloat16 const*)",
+     "K2 swin_attention_bwd"),
+    ("_ZN8swin_mma13bwd_dq_kernelILb1ELb1ELb1ELb0EEEvPK13__nv_bfloat16S3_PKfS5_iS3_PS1_PfS7_"
+     "N5wattn8GeometryE", "K2 swin_attention_bwd"),
+    ("void swin_mma::bwd_dq_kernel<false, false, true, false>(__nv_bfloat16 const*)",
+     "K3b window_attention_bwd"),
+    ("void swin_mma::bwd_dkdv_kernel<false, false, false, false>(__nv_bfloat16 const*)",
+     "K3b window_attention_bwd"),
+    ("_ZN8swin_mma15bwd_dkdv_kernelILb0ELb0ELb1ELb0EEEvPK13__nv_bfloat16S3_PKfS5_S5_iS3_PS1_"
+     "S5_PfS7_N5wattn8GeometryEi", "K3b window_attention_bwd"),
+    ("void swin_mma::bwd_dq_kernel<false, false, true, true>(__nv_bfloat16 const*)",
+     "K5 window_attention_global_bwd"),
+    ("_ZN8swin_mma15bwd_dkdv_kernelILb0ELb0ELb1ELb1EEEvPK13__nv_bfloat16S3_PKfS5_S5_iS3_PS1_"
+     "S5_PfS7_N5wattn8GeometryEi", "K5 window_attention_global_bwd"),
+    ("swin_mma::pad_bias(float const*, float*, int, int, int)", "K3b/K5 bias pad"),
     ("swin_mma::normalize_k(__nv_bfloat16 const*)", "K2 swin_attention_bwd"),
     ("swin_mma::combine_bias_mask(float const*)", "K2 swin_attention_bwd"),
     ("(anonymous namespace)::swin_attention_bwd_reduce(float const*)", "K2 swin_attention_bwd"),

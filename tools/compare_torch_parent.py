@@ -15,11 +15,20 @@ into its own ``build/``):
 1. Equality: every kernel wrapper call of ``chip_smoke.py``'s checks of K1 to
    K9 runs both builds on the same inputs; every output must be bit-equal to
    the parent's, except those of the kernels named by ``--changed`` in bf16
-   (by default K9's, whose bf16 route this tree redesigns).
-2. K9 in bf16 at batch 256 at ``chip_smoke.py``'s eleven shapes (the JAX
-   probe's two and B0's nine blocks), in turns parent, new, new, parent
-   (median of 20 CUDA-event timings each), beside each B0 block's own eval
+   (by default K3b's and K5's, whose bf16 route this tree redesigns).
+2. ``--turns attention`` (the default): the window attention kernels in
+   bf16 at their models' batch, in turns parent, new, new, parent (median of
+   20 CUDA-event timings each): K3b and K5 at gcvit_tiny's four stages, K3b
+   at davit_t's, K1 and K2 at swinv2_tiny's (windows 8 and 16); sums over
+   each model's forward or train-step backward, with the route of each shape.
+   ``--turns k9``: K9 at ``chip_smoke.py``'s eleven shapes (the JAX probe's
+   two and B0's nine blocks) at batch 256, beside each B0 block's own eval
    forward; sums over the nine blocks.
+3. ``--train gcvit_tiny davit_t``: each model's smoke train slice of
+   ``chip_smoke.py`` (bs 128, bf16, 10 one-step epochs after a 2-epoch
+   warm-up of each package) through each package's own ``run``, in turns
+   parent, new, new, parent: img/s over the train epochs (host clock, first
+   fetch to each step's loss read-back).
 Exits non-zero when an output differs that must not.
 """
 import argparse
@@ -141,12 +150,93 @@ def k9_turns(cs, new_mb, old_mb):
           f"forwards {sums[4]:.4f} ms", flush=True)
 
 
+def attention_turns(cs, new, old):
+    """bf16 K3b, K5 (gcvit_tiny, davit_t) and K1, K2 (swinv2_tiny at windows
+    8 and 16) at their models' batch, in turns; sums per model."""
+    import torch
+    bf16 = torch.bfloat16
+    new_dot, old_dot = new["window_attention_dot"], old["window_attention_dot"]
+    new_swin, old_swin = new["swin_attention"], old["swin_attention"]
+    cases = []  # (kind, label, launches per pass of the model, run(module))
+    for i, st in enumerate(cs.GCVIT_STAGES, 1):
+        for kind, parts, n in (("K5", 2, st[6]), ("K3b", 3, st[5])):
+            cases.append((kind, f"gcvit_tiny stage{i}", n, parts, st[:5], True))
+    for i, st in enumerate(cs.DAVIT_STAGES, 1):
+        cases.append(("K3b", f"davit_t stage{i}", st[5], 3, st[:5], False))
+    sums = {}
+
+    def record(kind, label, n, raw, extra=""):
+        key = (kind, label.split()[0])
+        total = sums.setdefault(key, [0.0] * 4)
+        for i, v in enumerate(raw):
+            total[i] += n * v
+        ratio = (raw[1] + raw[2]) / (raw[0] + raw[3])
+        print(f"{kind} bf16 {label} x{n}{extra}: parent {raw[0]:.4f}/{raw[3]:.4f} new "
+              f"{raw[1]:.4f}/{raw[2]:.4f} ms, new/parent {ratio:.4f}", flush=True)
+
+    for idx, (kind, label, n, parts, (hp, wp, c, heads, ws), with_bias) in enumerate(cases):
+        proj, qg, scale, bias, dout = cs.dot_inputs(128, hp, wp, c, heads, ws, bf16, parts,
+                                                    with_bias, 40 + idx)
+        if parts == 2:
+            def run(m, a=(proj, qg, scale, bias, dout, ws, heads)):
+                return lambda: m.window_attention_global_bwd_cuda(*a)
+            kernel = new_dot.KERNEL_GLOBAL_BWD
+        else:
+            def run(m, a=(proj, scale, bias, dout, ws, heads)):
+                return lambda: m.window_attention_bwd_cuda(*a)
+            kernel = new_dot.KERNEL_BWD
+        raw = turns(run(old_dot), run(new_dot))
+        record(kind, label, n, raw, f" ws {ws} bias {with_bias} route "
+               f"{new_dot.backward_route(kernel, bf16)}")
+        del proj, qg, bias, dout
+    for model in ("swinv2_tiny_window8_256", "swinv2_tiny_window16_256"):
+        batch = cs.SWIN_MODELS[model][0]
+        for stage, (hp, wp, c, heads, ws), masked, n in cs.swin_cases(model):
+            args = cs.attention_inputs(batch, hp, wp, c, heads, ws, bf16, masked, 50 + stage)
+            dout = torch.randn((batch, hp, wp, c), device="cuda").to(bf16)
+            label = f"{model} stage{stage} L={ws * ws} mask={masked}"
+            for kind, fn, extra in (("K1", "swin_attention_fwd_cuda", ()),
+                                    ("K2", "swin_attention_bwd_cuda", (dout,))):
+                record(kind, label, n, turns(
+                    lambda m=old_swin: getattr(m, fn)(*args, *extra, ws, heads),
+                    lambda m=new_swin: getattr(m, fn)(*args, *extra, ws, heads)))
+            del args, dout
+    for (kind, model), t in sums.items():
+        print(f"{kind} bf16 SUM {model}: parent {t[0]:.4f}/{t[3]:.4f} new {t[1]:.4f}/{t[2]:.4f} "
+              f"ms, new/parent {(t[1] + t[2]) / (t[0] + t[3]):.4f}", flush=True)
+
+
+TRAIN_CONFIGS = {"gcvit_tiny": "GCVIT_TRAIN_CONFIG", "davit_t": "DAVIT_TRAIN_CONFIG"}
+
+
+def train_turns(cs, models):
+    """The models' smoke train slices through both packages' ``run``."""
+    import torch
+    from torchok_tpu_torch.__main__ import run as new_run
+    from torchok_tpu_torch_parent.__main__ import run as old_run
+    for model in models:
+        config = getattr(cs, TRAIN_CONFIGS[model])
+        for fit in (old_run, new_run):  # warm-up: plans, allocator, optimizer kernels
+            fit(cs.smoke_train_config(2, config, 224), "train")
+        rates = []
+        for fit in (old_run, new_run, new_run, old_run):
+            trainer, _ = fit(cs.smoke_train_config(cs.TRAIN_STEPS, config, 224), "train")
+            torch.cuda.synchronize()
+            rates.append(trainer.last_fit["images"] / trainer.last_fit["seconds"])
+        print(f"{model} train bs128 bf16 img/s: parent {rates[0]:.2f}/{rates[3]:.2f} new "
+              f"{rates[1]:.2f}/{rates[2]:.2f}, new/parent "
+              f"{(rates[1] + rates[2]) / (rates[0] + rates[3]):.4f}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=os.path.join(REPO, "build", "parent"),
                     help="directory holding torchok_tpu_torch_parent")
-    ap.add_argument("--changed", nargs="*", default=["mbconv_fused_cuda"],
+    ap.add_argument("--changed", nargs="*",
+                    default=["window_attention_bwd_cuda", "window_attention_global_bwd_cuda"],
                     help="wrappers whose bf16 outputs may differ from the parent's")
+    ap.add_argument("--turns", choices=("attention", "k9", "none"), default="attention")
+    ap.add_argument("--train", nargs="*", default=[], choices=sorted(TRAIN_CONFIGS))
     ap.add_argument("--skip-equality", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.parent))
@@ -176,7 +266,11 @@ def main():
               f"{len(mismatches)} differ ({time.time() - start:.1f} s)", flush=True)
         for name, shapes, dt in mismatches:
             print("DIFFERS", name, shapes, dt, flush=True)
-    k9_turns(cs, new["mbconv_fused"], old["mbconv_fused"])
+    if args.turns == "attention":
+        attention_turns(cs, new, old)
+    elif args.turns == "k9":
+        k9_turns(cs, new["mbconv_fused"], old["mbconv_fused"])
+    train_turns(cs, args.train)
     print(cs.card_line(), flush=True)
     if mismatches:
         sys.exit(1)

@@ -36,8 +36,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KINDS = [  # first match wins
     ("K9 mbconv_fused_fwd", r"mbconv_(pass|gate)"),
-    # K2's bf16 passes and their set-up (swin_mma::...), its f32 key-tiled
-    # kernel, its entry's reduce
+    # the bf16 bias of K3b and K5 at L = 49 in rows of 52 floats (one set-up
+    # kernel for both)
+    ("K3b/K5 bias pad", r"pad_bias"),
+    # K2's bf16 set-up (swin_mma::normalize_k, combine_bias_mask), its f32
+    # key-tiled kernel, its entry's reduce (its passes: _MMA_BWD below)
     ("K2 swin_attention_bwd", r"swin_attention_bwd|swin_mma|window_attention_bwd_tiled"),
     # K1's bf16 kernel and its set-up (swin_fwd::...), its f32 key-tiled kernel
     ("K1 swin_attention_fwd", r"swin_attention_fwd|swin_fwd|window_attention_fwd_tiled"),
@@ -73,19 +76,32 @@ _TEMPLATE_KINDS = {("fwd", "cosine"): "K1 swin_attention_fwd",
                    ("bwd", "plain"): "K3b window_attention_bwd"}
 
 
-def _template_flags(name: str):
-    """The bool template arguments of a window attention template kernel,
+# The bf16 tensor-core backward's two passes serve K2 (cosine), K3b and K5
+# (global queries): swin_mma::bwd_{dq,dkdv}_kernel<kCosine, kShifted,
+# kHasBias, kGlobal>.
+_MMA_BWD = re.compile(r"bwd_(?:dq|dkdv)_kernel")
+
+
+def _bool_flags(name: str, kernel: str):
+    """The bool template arguments of a kernel whose name matches ``kernel``,
     from its demangled (``<..., true, false, ...>``) or mangled (``Lb1E``)
     name."""
-    m = re.search(r"window_attention_(?:fwd|bwd)_kernel<([^>]*)>", name)
+    m = re.search(kernel + r"<([^>]*)>", name)
     if m:
-        return [a.strip() in ("true", "(bool)1") for a in m.group(1).split(",")[2:]]
+        return [a.strip() in ("true", "(bool)1") for a in m.group(1).split(",")
+                if a.strip() in ("true", "false", "(bool)1", "(bool)0")]
     return [b == "1" for b in re.findall(r"Lb([01])E", name)]
 
 
 def kind_of(name: str) -> str:
+    if _MMA_BWD.search(name):
+        flags = _bool_flags(name, r"bwd_(?:dq|dkdv)_kernel")
+        if len(flags) == 4:
+            cosine, _, _, is_global = flags
+            return _TEMPLATE_KINDS[("bwd", "cosine" if cosine else
+                                    "global" if is_global else "plain")]
     m = _TEMPLATE.search(name)
-    flags = _template_flags(name) if m else []
+    flags = _bool_flags(name, r"window_attention_(?:fwd|bwd)_kernel") if m else []
     if len(flags) == 4:
         _, is_global, cosine, _ = flags
         mode = "cosine" if cosine else "global" if is_global else "plain"

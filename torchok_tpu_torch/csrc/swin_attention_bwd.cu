@@ -18,8 +18,9 @@
 //   dq = rq dqn - rq^3 q rowsum(q dqn);  dk likewise;  dqkv = T([dq | dk | dv])
 //
 // Routing (swin_attention_bwd_route, which dispatch follows):
-//  * bf16, every L (36 to 576): the tensor-core kernel of
-//    swin_attention_bwd_mma.cuh, two passes (row statistics and dq; dk, dv,
+//  * bf16, every L (36 to 576): the cosine mode of the tensor-core kernel
+//    of swin_attention_bwd_mma.cuh (shared with the plain-dot backwards),
+//    two passes (row statistics and dq; dk, dv,
 //    dbias and dscale) on mma.sync with ldmatrix and cp.async, key and query
 //    tiles of 64, L padded to a multiple of 16, the dbias sums of each block
 //    in shared memory across its images. Nine products, all on the tensor
@@ -109,10 +110,13 @@ cudaError_t dispatch(int dtype, const void* qkv, const void* scale, const void* 
                      cudaStream_t st) {
   const bool masked = mask != nullptr;
   if (route_of(dtype, g.ws) == kRouteMma) {
-    return masked ? swin_mma::launch<true>(qkv, scale, bias, mask, dout, dqkv, pbias, pscale,
-                                           stats, work, g, images_per_block, st)
-                  : swin_mma::launch<false>(qkv, scale, bias, mask, dout, dqkv, pbias, pscale,
-                                            stats, work, g, images_per_block, st);
+    // the cosine mode of the tensor-core passes: <kCosine, kShifted, kHasBias, kGlobal>
+    return masked ? swin_mma::launch<true, true, true, false>(
+                        qkv, nullptr, scale, bias, mask, dout, dqkv, nullptr, pbias, pscale,
+                        stats, work, g, images_per_block, st)
+                  : swin_mma::launch<true, false, true, false>(
+                        qkv, nullptr, scale, bias, mask, dout, dqkv, nullptr, pbias, pscale,
+                        stats, work, g, images_per_block, st);
   }
   return masked ? launch_f32<true>(qkv, scale, bias, mask, dout, dqkv, pbias, pscale, g,
                                    images_per_block, st)

@@ -1,9 +1,11 @@
-// Pieces shared by the SwinV2 cosine window attention kernels on Hopper's
-// tensor cores in bf16: the forward (swin_attention_fwd_mma.cuh) and the
-// backward (swin_attention_bwd_mma.cuh). PTX wrappers for cp.async,
+// Pieces shared by the window attention kernels on Hopper's tensor cores in
+// bf16: the SwinV2 cosine forward (swin_attention_fwd_mma.cuh) and the
+// backward of all three modes, cosine, plain-dot local and global-query
+// (swin_attention_bwd_mma.cuh). PTX wrappers for cp.async,
 // ldmatrix and mma.sync.m16n8k16 (bf16 operands, f32 accumulators), the
 // tile heights, the fragment layouts of the products, and the loaders,
-// normalisation and stores of window rows (through a window's pixel table).
+// normalisation and stores of window rows (through a window's pixel table)
+// and of dense rows (global queries).
 #pragma once
 #include "window_attention_common.cuh"
 
@@ -143,6 +145,19 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ im
     const int part = idx & 3;
     const bool valid = r0 + r < L;
     const bf16* src = image + (valid ? (size_t)pix[r0 + r] * width + off + part * 8 : 0);
+    cp_async16(dst + r * kRow + part * 8, src, valid);
+  }
+}
+
+// Rows r0 .. r0 + rows of a dense (L, width) matrix (channels off .. off +
+// 32) into dst by cp.async, zeros beyond L: GCViT's global queries.
+__device__ __forceinline__ void load_dense_rows(bf16* dst, const bf16* __restrict__ matrix,
+                                                int width, int off, int r0, int rows, int L) {
+  for (int idx = threadIdx.x; idx < rows * 4; idx += blockDim.x) {
+    const int r = idx >> 2;
+    const int part = idx & 3;
+    const bool valid = r0 + r < L;
+    const bf16* src = matrix + (valid ? (size_t)(r0 + r) * width + off + part * 8 : 0);
     cp_async16(dst + r * kRow + part * 8, src, valid);
   }
 }

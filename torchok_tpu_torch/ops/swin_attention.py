@@ -337,6 +337,21 @@ class BackwardScratch(NamedTuple):
 _MMA_SLAB_BYTES = 64 * 2 ** 20
 
 
+def mma_images_per_block(b: int, positions: int, slab_bytes: int,
+                         device: torch.device) -> int:
+    """Images a dk/dv block of the bf16 tensor-core backward
+    (``csrc/swin_attention_bwd_mma.cuh``, every mode) loops over, with
+    ``positions`` blocks per slice of the images and ``slab_bytes`` of
+    dbias slabs per slice (0 without a bias): about four waves of one block
+    per SM (fewer images per block balance the SMs better) while the slabs
+    stay under 64 MiB."""
+    per_block = _images_per_block(b, positions, device, 4)
+    max_slices = max(1, _MMA_SLAB_BYTES // slab_bytes) if slab_bytes else b
+    if -(-b // per_block) > max_slices:
+        per_block = -(-b // max_slices)
+    return per_block
+
+
 def backward_scratch(b: int, nw: int, nheads: int, ws: int, dtype: torch.dtype,
                      device: torch.device, masked: bool = False) -> BackwardScratch:
     """Grid and scratch of the backward for ``dtype``. f32, on the FMA
@@ -361,11 +376,7 @@ def backward_scratch(b: int, nw: int, nheads: int, ws: int, dtype: torch.dtype,
         slots = nw * -(-b // per_block)
         return BackwardScratch(per_block, slots, slots, 0, 0)
     tiles = -(-L // _MMA_TILE)
-    positions = nw * tiles * nheads
-    per_block = _images_per_block(b, positions, device, 4)
-    max_slices = max(1, _MMA_SLAB_BYTES // (nw * nheads * L * L * 4))
-    if -(-b // per_block) > max_slices:
-        per_block = -(-b // max_slices)
+    per_block = mma_images_per_block(b, nw * tiles * nheads, nw * nheads * L * L * 4, device)
     slots = nw * -(-b // per_block)
     pixels = b * nw * L
     work = (-(-nw * nheads * L * L // 4) * 4 if masked else 0) + pixels * nheads

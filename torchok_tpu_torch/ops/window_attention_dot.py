@@ -18,7 +18,14 @@ A CUDA tensor goes to the hand-written Hopper kernels
 ``csrc/window_attention_global_{fwd,bwd}.cu`` (they launch or raise); a CPU
 tensor goes to the plain PyTorch versions of the same arithmetic below, which
 the CPU tests compare with the JAX package and ``chip_smoke.py`` compares
-with the kernels on the card.
+with the kernels on the card. The two backward kernels route by dtype
+(:func:`backward_route`; launches counted per route in
+:data:`ROUTE_LAUNCHES`): bf16, what training runs under autocast, goes to
+the plain-dot modes of the tensor-core backward
+``csrc/swin_attention_bwd_mma.cuh`` (SwinV2's two passes on ``mma.sync``;
+the global mode sums dq over an image's windows in one block), f32 stays on
+the FMA template ``csrc/window_attention_bwd.cuh``.
+:func:`backward_scratch` sizes both routes' grids and scratch.
 
 Rounding points (those of the Pallas kernels): q and k enter the product in
 the input dtype with f32 accumulation; the logits, the per-head scale (applied
@@ -32,14 +39,17 @@ gradient.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
-from torchok_tpu_torch.ops.swin_attention import _images_per_block, from_windows, to_windows
+from torchok_tpu_torch.ops.swin_attention import (_MMA_TILE, _images_per_block,
+                                                  from_windows, mma_images_per_block,
+                                                  to_windows)
 
 KERNEL = "window_attention_fwd"
 PLAIN = "window_attention_fwd_plain"
@@ -51,6 +61,12 @@ KERNEL_GLOBAL_BWD = "window_attention_global_bwd"
 PLAIN_GLOBAL_BWD = "window_attention_global_bwd_plain"
 KERNELS = (KERNEL, KERNEL_BWD, KERNEL_GLOBAL, KERNEL_GLOBAL_BWD)
 
+# the backward kernels' routes, as window_attention{,_global}_bwd_route number them
+BWD_ROUTES = ("templates", "mma")
+# launches of the two backward kernels per (kernel, route) (the wrappers add
+# one per launch)
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
+
 _KERNEL_D = 32
 _KERNEL_MAX_WS = 16  # L = ws * ws <= 256 keys held in shared memory
 
@@ -58,14 +74,14 @@ _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # qkv, scale, bias, out; dtype, B, Hp, Wp, C, nheads, ws; stream
     KERNEL: [_VOID] * 4 + [_INT] * 7 + [_VOID],
-    # qkv, scale, bias, dout, dqkv, dbias, partial; dtype, B, Hp, Wp, C,
-    # nheads, ws, images_per_block; stream
-    KERNEL_BWD: [_VOID] * 7 + [_INT] * 8 + [_VOID],
+    # qkv, scale, bias, dout, dqkv, dbias, partial, row_stats, work; dtype,
+    # B, Hp, Wp, C, nheads, ws, images_per_block; stream
+    KERNEL_BWD: [_VOID] * 9 + [_INT] * 8 + [_VOID],
     # kv, qg, scale, bias, out; dtype, B, Hp, Wp, C, nheads, ws; stream
     KERNEL_GLOBAL: [_VOID] * 5 + [_INT] * 7 + [_VOID],
-    # kv, qg, scale, bias, dout, dkv, dqg, dbias, partial; dtype, B, Hp, Wp,
-    # C, nheads, ws, images_per_block; stream
-    KERNEL_GLOBAL_BWD: [_VOID] * 9 + [_INT] * 8 + [_VOID],
+    # kv, qg, scale, bias, dout, dkv, dqg, dbias, partial, row_stats, work;
+    # dtype, B, Hp, Wp, C, nheads, ws, images_per_block; stream
+    KERNEL_GLOBAL_BWD: [_VOID] * 11 + [_INT] * 8 + [_VOID],
 }
 
 
@@ -185,6 +201,56 @@ def _function(name: str):
     return load_function(name, _ARGTYPES[name])
 
 
+def backward_route(kernel: str, dtype: torch.dtype) -> str:
+    """The route (one of :data:`BWD_ROUTES`) the backward kernel ``kernel``
+    (:data:`KERNEL_BWD` or :data:`KERNEL_GLOBAL_BWD`) takes for this dtype
+    at every window size, as the built library reports it."""
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    _function(kernel)  # builds the four sources side by side
+    return BWD_ROUTES[load_function(kernel, [_INT], f"{kernel}_route")(DTYPE_CODE[dtype])]
+
+
+class BackwardScratch(NamedTuple):
+    """Grid and scratch of one backward launch (all scratch f32)."""
+    images_per_block: int  # images a dk/dv block (f32: a block) loops over
+    slots: int             # dbias slabs (slots, H, L, L); 0 without a bias
+    row_stats: int         # entries of the bf16 row statistics (3, B, H, nW, L)
+    work: int              # entries of the bf16 bias in rows of L rounded up to 4, (H, L, ld)
+
+    def nbytes(self, nheads: int, L: int) -> int:
+        return 4 * (self.slots * nheads * L * L + self.row_stats + self.work)
+
+
+def backward_scratch(b: int, nw: int, nheads: int, ws: int, dtype: torch.dtype,
+                     device: torch.device, has_bias: bool = True,
+                     global_queries: bool = False) -> BackwardScratch:
+    """Grid and scratch of a backward launch for ``dtype``. f32, on the FMA
+    template: a block per (window position, head) and slice of the images
+    (global: per head and slice, looping over each image's windows), about
+    four blocks per SM, one dbias slab per (window position,) slice. bf16, on
+    the tensor-core kernel: its dq pass has a block per (window position,
+    query tile, head, image) (global: per (query tile, head, image), walking
+    the windows); its dk/dv pass a block per (window position, 64-key tile,
+    head, slice of the images) holding the block's dbias column in shared
+    memory over its images, so one slab per (window position, slice), sliced
+    as the SwinV2 backward's (``ops.swin_attention.mma_images_per_block``:
+    about four waves, slabs under 64 MiB). Its row statistics take 3 floats
+    per token and head; with a bias and L not a multiple of 4 (L = 49) the
+    bias is copied into rows of L rounded up to 4 floats, so that its tiles
+    load 16 bytes a thread."""
+    L = ws * ws
+    if dtype != torch.bfloat16:
+        per_block = _images_per_block(b, nheads if global_queries else nw * nheads, device)
+        slices = -(-b // per_block)
+        return BackwardScratch(per_block, slices if global_queries else nw * slices, 0, 0)
+    tiles = -(-L // _MMA_TILE)
+    slab = nw * nheads * L * L * 4 if has_bias else 0
+    per_block = mma_images_per_block(b, nw * tiles * nheads, slab, device)
+    slots = nw * -(-b // per_block) if has_bias else 0
+    work = nheads * L * (-(-L // 4) * 4) if has_bias and L % 4 else 0
+    return BackwardScratch(per_block, slots, 3 * b * nheads * nw * L, work)
+
+
 def _check_args(kernel: str, proj: torch.Tensor, parts: int, scale: torch.Tensor,
                 bias: Optional[torch.Tensor], ws: int, nheads: int) -> int:
     """Raise on devices, shapes, types or layouts the kernels do not take;
@@ -225,6 +291,12 @@ def _raise_on(err: int, kernel: str) -> None:
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _scratch(plan: BackwardScratch, f32: dict) -> Tuple[Optional[torch.Tensor], ...]:
+    """The bf16 route's row statistics and padded bias, None where the plan
+    has none."""
+    return tuple(torch.empty((n,), **f32) if n else None for n in (plan.row_stats, plan.work))
 
 
 def window_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
@@ -268,20 +340,21 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
     _check_aligned(dout, "dout")
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
-    # one block per (window position, head) and slice of the images
-    per_block = _images_per_block(b, nw * nheads, qkv.device)
+    plan = backward_scratch(b, nw, nheads, ws, qkv.dtype, qkv.device, bias is not None)
+    f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     dbias = partial = None
     if bias is not None:
-        f32 = dict(dtype=torch.float32, device=qkv.device)
         dbias = torch.empty((nheads, L, L), **f32)
-        partial = torch.empty((nw * -(-b // per_block), nheads, L, L), **f32)
+        partial = torch.empty((plan.slots, nheads, L, L), **f32)
+    row_stats, work = _scratch(plan, f32)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _function(KERNEL_BWD)(qkv.data_ptr(), scale.data_ptr(), _ptr(bias), dout.data_ptr(),
-                                dqkv.data_ptr(), _ptr(dbias), _ptr(partial),
-                                DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, per_block,
-                                stream)
+                                dqkv.data_ptr(), _ptr(dbias), _ptr(partial), _ptr(row_stats),
+                                _ptr(work), DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws,
+                                plan.images_per_block, stream)
     _raise_on(err, KERNEL_BWD)
+    ROUTE_LAUNCHES[(KERNEL_BWD, backward_route(KERNEL_BWD, qkv.dtype))] += 1
     return dqkv, dbias
 
 
@@ -298,21 +371,22 @@ def window_attention_global_bwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: 
     check_tensor(dout, "dout", (b, hp, wp, c), kv.dtype, kv.device)
     _check_aligned(qg, "q_global")
     _check_aligned(dout, "dout")
-    # one block per head and slice of the images, looping over their windows
-    # (dqg is summed inside the block): about four blocks per SM where the
-    # batch allows, e.g. 8 heads x 64 slices of 2 images at GCViT's stage 3
-    per_block = _images_per_block(b, nheads, kv.device)
+    nw = (hp // ws) * (wp // ws)
+    plan = backward_scratch(b, nw, nheads, ws, kv.dtype, kv.device, True, True)
     f32 = dict(dtype=torch.float32, device=kv.device)
     dkv = torch.empty_like(kv)
     dqg = torch.empty((b, L, c), **f32)
     dbias = torch.empty((nheads, L, L), **f32)
-    partial = torch.empty((-(-b // per_block), nheads, L, L), **f32)
+    partial = torch.empty((plan.slots, nheads, L, L), **f32)
+    row_stats, work = _scratch(plan, f32)
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     err = _function(KERNEL_GLOBAL_BWD)(
         kv.data_ptr(), qg.data_ptr(), scale.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-        dkv.data_ptr(), dqg.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
-        DTYPE_CODE[kv.dtype], b, hp, wp, c, nheads, ws, per_block, stream)
+        dkv.data_ptr(), dqg.data_ptr(), dbias.data_ptr(), partial.data_ptr(), _ptr(row_stats),
+        _ptr(work), DTYPE_CODE[kv.dtype], b, hp, wp, c, nheads, ws, plan.images_per_block,
+        stream)
     _raise_on(err, KERNEL_GLOBAL_BWD)
+    ROUTE_LAUNCHES[(KERNEL_GLOBAL_BWD, backward_route(KERNEL_GLOBAL_BWD, kv.dtype))] += 1
     return dkv, dqg, dbias
 
 
