@@ -121,6 +121,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -239,6 +240,9 @@ GCVIT_STAGES = ((56, 56, 64, 2, 7, 2, 1), (28, 28, 128, 4, 7, 2, 2),
 # davit_t at 224x224: (Hp, Wp, C, heads, ws, spatial blocks); no bias
 DAVIT_STAGES = ((56, 56, 96, 3, 7, 1), (28, 28, 192, 6, 7, 1),
                 (14, 14, 384, 12, 7, 3), (7, 7, 768, 24, 7, 1))
+# the plain modes' tensor-core forward kernels in a build (mangled names:
+# swin_fwd_kernel<., ., kCosine false, ...> and the global window walk)
+PLAIN_FWD_MMA = r"swin_fwd_kernelILi\dELi\dELb0E|global_fwd_kernel"
 GCVIT_LOCAL = sum(st[5] for st in GCVIT_STAGES)    # 17 K3 launches per forward
 GCVIT_GLOBAL = sum(st[6] for st in GCVIT_STAGES)   # 14 K4 launches per forward
 DAVIT_SPATIAL = sum(st[5] for st in DAVIT_STAGES)  # 6 K3 launches per forward
@@ -542,13 +546,16 @@ def check_dot(kind, cases, timing=True):
     """One plain window attention kernel against its plain version at every
     shape in ``cases`` = [(label, (hp, wp, c, heads, ws), with_bias, launches
     per forward or backward of its model, counts towards the record)], in f32
-    at B 8 and bf16 at B 128; backward kernels twice for bit equality. Returns
+    at B 8 and bf16 at B 128, twice for bit equality, with the route each
+    launch took (bf16 on the tensor cores, f32 on the FMA template). Returns
     the JSON record, whose times are summed over the cases that count."""
     import torch
     import torch.nn.functional as F
     from torchok_tpu_torch.ops import window_attention_dot as dot
     wrapper_name, plain_name, source, replaces, parts, backward, names = _DOT[kind]
     wrapper, plain = getattr(dot, wrapper_name), getattr(dot, plain_name)
+    route_of, counter = ((dot.backward_route, dot.ROUTE_LAUNCHES) if backward
+                         else (dot.forward_route, dot.FWD_ROUTE_LAUNCHES))
     failures = []
     worst_bf16 = 0.0
     total = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0, "launches": 0}
@@ -564,20 +571,18 @@ def check_dot(kind, cases, timing=True):
         name = str(dtype).split(".")[-1]
         for idx, (label, (hp, wp, c, heads, ws), with_bias, n, counts) in enumerate(cases):
             inputs = dot_inputs(batch, hp, wp, c, heads, ws, dtype, parts, with_bias, 20 + idx)
-            before = dict(dot.ROUTE_LAUNCHES)
+            before = dict(counter)
             got = call(wrapper, *inputs, ws, heads)
-            again = call(wrapper, *inputs, ws, heads) if backward else got
-            routed = {k: v - before.get(k, 0) for k, v in dot.ROUTE_LAUNCHES.items()
+            again = call(wrapper, *inputs, ws, heads)
+            routed = {k: v - before.get(k, 0) for k, v in counter.items()
                       if v != before.get(k, 0)}
             ref = call(plain, *inputs, ws, heads)
             torch.cuda.synchronize()
             ok = all(torch.equal(a, b) for a, b in zip(got, again))
-            route = ""
-            if backward:  # bf16 on the tensor cores, f32 on the FMA template
-                route = dot.backward_route(source, dtype)
-                want = "mma" if dtype == torch.bfloat16 else "templates"
-                ok = ok and route == want and routed == {(source, route): 2}
-                route = f" route {route}"
+            # bf16 on the tensor cores, f32 on the FMA template
+            route = route_of(source, dtype)
+            want = "mma" if dtype == torch.bfloat16 else "templates"
+            ok = ok and route == want and routed == {(source, route): 2}
             ok = ok and all(bool(torch.isfinite(t).all().item()) for t in got)
             parts_txt = []
             for key, g, r in zip((k for k in names if with_bias or k != "dbias"), got, ref):
@@ -595,8 +600,8 @@ def check_dot(kind, cases, timing=True):
             del got, again, ref
             width = parts * c
             line = (f"{kind} {name} B{batch} {label} proj=({batch},{hp},{wp},{width}) "
-                    f"heads={heads} ws={ws} bias={with_bias} x{n}{route}: " + ", ".join(parts_txt)
-                    + (", bit-equal twice" if backward else ""))
+                    f"heads={heads} ws={ws} bias={with_bias} x{n} route {route}: "
+                    + ", ".join(parts_txt) + ", bit-equal twice")
             if timing:
                 iters = TIMING_ITERS if batch > CHECK_BATCH else TIMING_ITERS_SMALL
                 k_ms = median_ms(lambda: call(wrapper, *inputs, ws, heads), iters)
@@ -652,7 +657,9 @@ def check_dot(kind, cases, timing=True):
     return {"name": source, "route": "cuda", "source": f"torchok_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": worst_bf16,
             "ms": total["k"], "plain_ms": total["p"], "bound_ms": total_bound,
-            "bound_by": bound_by, "library_ms": total["lib"] if timing else None}
+            "bound_by": bound_by, "library_ms": total["lib"] if timing else None,
+            "dtype_routes": {dtype_name(t): route_of(source, t)
+                             for t in (torch.bfloat16, torch.float32)}}
 
 
 def gcvit_cases(column):
@@ -1323,14 +1330,31 @@ def calibrate_norms(model, images):
         m.momentum = momentum
 
 
-def run_slice(label, config, per_forward, records, image_size, prepare_reference=None):
+def require_fwd_routes(label, per_forward, forwards):
+    """The plain-dot forwards' launches by (kernel, route) since the counter
+    was cleared (``ops.window_attention_dot.FWD_ROUTE_LAUNCHES``) must be
+    ``forwards`` times ``per_forward``; None checks nothing."""
+    from torchok_tpu_torch.ops import window_attention_dot as dot
+    if per_forward is None:
+        return
+    routes = {k: v for k, v in dot.FWD_ROUTE_LAUNCHES.items() if v}
+    want = {k: n * forwards for k, n in per_forward.items() if n}
+    print(f"{label} K3a/K4 launches by route: {routes}", flush=True)
+    if routes != want:
+        fail(f"{label}: expected K3a/K4 launches by route {want}, got {routes}")
+
+
+def run_slice(label, config, per_forward, records, image_size, prepare_reference=None,
+              fwd_routes=None):
     """The inference slice of one model: ``per_forward`` maps each kernel to
     its launches per forward; ``records`` maps it to its JSON record.
     ``prepare_reference(model, images)`` may change the model before the f32
-    reference run on ``images``."""
+    reference run on ``images``. ``fwd_routes``, if given, maps each (K3a or
+    K4 kernel, route) to its launches per forward."""
     import numpy as np
     import torch
     from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.ops import window_attention_dot as dot
     from torchok_tpu_torch.ops.common import LAUNCHES
 
     # warm-up run (cuDNN/cuBLAS plans, allocator) outside the measured one
@@ -1341,9 +1365,11 @@ def run_slice(label, config, per_forward, records, image_size, prepare_reference
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    dot.FWD_ROUTE_LAUNCHES.clear()
     trainer, logs = run(copy.deepcopy(config), "test")
     torch.cuda.synchronize()
     test_counts = launch_counts()
+    require_fwd_routes(f"{label} test", fwd_routes, BATCHES)
     peak = torch.cuda.max_memory_allocated()
     stats = trainer.last_eval
     batch_size = config["data"]["TEST"][0]["dataloader"]["batch_size"]
@@ -1353,9 +1379,11 @@ def run_slice(label, config, per_forward, records, image_size, prepare_reference
           f"launches {test_counts}; logs {logs}", flush=True)
 
     LAUNCHES.clear()
+    dot.FWD_ROUTE_LAUNCHES.clear()
     trainer, preds = run(copy.deepcopy(config), "predict")
     torch.cuda.synchronize()
     predict_counts = launch_counts()
+    require_fwd_routes(f"{label} predict", fwd_routes, BATCHES)
     print(f"{label} predict: {len(preds)} batches; launches {predict_counts}", flush=True)
 
     want = {k: n * BATCHES for k, n in per_forward.items()}
@@ -1409,12 +1437,13 @@ def smoke_train_config(epochs: int, config=None, size: int = 256, batch: int = 1
 
 
 def run_train_slice(label, config, size, per_forward, per_backward, must_move, records,
-                    per_route=None):
+                    per_route=None, fwd_routes=None):
     """The train slice of one model: ``per_forward`` / ``per_backward`` map
     each kernel to its launches per forward / per train step; ``must_move``
     lists name fragments of parameters that have to change; ``per_route``,
     if given, maps each (K3b or K5 kernel, route) to its launches per train
-    step (``ops.window_attention_dot.ROUTE_LAUNCHES``)."""
+    step (``ops.window_attention_dot.ROUTE_LAUNCHES``), ``fwd_routes`` each
+    (K3a or K4 kernel, route) to its launches per forward."""
     import torch
     from torchok_tpu_torch.__main__ import run
     from torchok_tpu_torch.engine.callbacks import Callback
@@ -1442,6 +1471,7 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     dot.ROUTE_LAUNCHES.clear()
+    dot.FWD_ROUTE_LAUNCHES.clear()
     trainer, logs = run(smoke_train_config(TRAIN_STEPS, config, size, batch), "train",
                         [recorder])
     torch.cuda.synchronize()
@@ -1464,6 +1494,7 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
     print(f"{label} last epoch logs: {logs}", flush=True)
 
     eval_batches = 2  # one sanity batch, one validation batch after the last epoch
+    require_fwd_routes(f"{label} train", fwd_routes, TRAIN_STEPS + eval_batches)
     want = {k: n * (TRAIN_STEPS + eval_batches) for k, n in per_forward.items()}
     want.update({k: n * TRAIN_STEPS for k, n in per_backward.items()})
     require_launches(f"{label} train", counts, want)
@@ -1549,14 +1580,15 @@ def gradient_reference(label, config, size, want, probe):
              f"at {worst_name}")
 
 
-def sass_functions(kernel) -> dict:
-    """The SASS of each function in the built library of ``kernel``, by name."""
+def sass_functions(kernel, library=None) -> dict:
+    """The SASS of each function in the built library of ``kernel`` (or in
+    the library at the path ``library``), by name."""
     import shutil
     from torchok_tpu_torch.utils.cuda_build import library_path
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(library_path(kernel))], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = subprocess.run([tool, "-sass", str(library or library_path(kernel))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
     return {part.split("\n", 1)[0].strip(): part for part in sass.split("Function : ")[1:]}
 
 
@@ -1567,8 +1599,8 @@ def sass_has_hgmma(kernel) -> bool:
 
 def ptxas_usage(kernel, needle):
     """(function, registers, spill stores, spill loads) of each entry function
-    of ``kernel``'s build whose mangled name holds ``needle``, from the
-    compiler's ``-Xptxas -v`` output."""
+    of ``kernel``'s build whose mangled name matches the regular expression
+    ``needle``, from the compiler's ``-Xptxas -v`` output."""
     from torchok_tpu_torch.utils.cuda_build import build_log
     found, name, spills = [], None, (0, 0)
     for ln in build_log(kernel).splitlines():
@@ -1577,7 +1609,7 @@ def ptxas_usage(kernel, needle):
         elif "bytes spill stores" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
             spills = (nums[1], nums[2])  # stack frame, spill stores, spill loads
-        elif "Used" in ln and "registers" in ln and name and needle in name:
+        elif "Used" in ln and "registers" in ln and name and re.search(needle, name):
             regs = int(ln.split("Used")[1].split()[0])
             found.append((name, regs) + spills)
             name = None
@@ -1585,8 +1617,9 @@ def ptxas_usage(kernel, needle):
 
 
 def check_mma_build(kind, library, needle, route, count=4, windows=None):
-    """The bf16 tensor-core kernels of K1, K2, K3b or K5 (the ``count``
-    instantiations whose names hold ``needle`` in ``library``'s build):
+    """The bf16 tensor-core kernels of K1 to K5 (the ``count`` instantiations
+    whose mangled names match the regular expression ``needle`` in
+    ``library``'s build):
     registers and spills, HMMA in their SASS, and the route each window size
     (by default those of ``SWIN_MODELS``) takes per dtype (``route``: bf16
     on the tensor-core kernel, f32 on the FMA templates or the key-tiled
@@ -1596,7 +1629,7 @@ def check_mma_build(kind, library, needle, route, count=4, windows=None):
     for name, regs, stores, loads in usage:
         print(f"{kind} mma {name}: {regs} registers, spill stores {stores} B, "
               f"spill loads {loads} B", flush=True)
-    sass = {n: t for n, t in sass_functions(library).items() if needle in n}
+    sass = {n: t for n, t in sass_functions(library).items() if re.search(needle, n)}
     with_hmma = sorted(n for n, t in sass.items() if "HMMA" in t)
     print(f"{kind} SASS has HMMA in {len(with_hmma)} of its {len(sass)} tensor-core kernels",
           flush=True)
@@ -1713,6 +1746,12 @@ def main() -> None:
         check_mma_build(kind, kernel, "bwd_d",
                         lambda dtype, ws, k=kernel: dot.backward_route(k, dtype), count,
                         dot_windows)
+    # the tensor-core forward's plain modes: swin_fwd_kernel<tile rows / 16,
+    # images, kCosine false, kHasBias, kGlobal>, K3a with and without a bias,
+    # K4 above L = 64, and K4's window walk global_fwd_kernel<tile rows / 16>
+    for kind, kernel in (("K3a", dot.KERNEL), ("K4", dot.KERNEL_GLOBAL)):
+        check_mma_build(kind, kernel, PLAIN_FWD_MMA,
+                        lambda dtype, ws, k=kernel: dot.forward_route(k, dtype), 4, dot_windows)
     check_k9_build()
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
@@ -1745,18 +1784,21 @@ def main() -> None:
 
     gcvit_fwd = {dot.KERNEL: GCVIT_LOCAL, dot.KERNEL_GLOBAL: GCVIT_GLOBAL}
     gcvit_bwd = {dot.KERNEL_BWD: GCVIT_LOCAL, dot.KERNEL_GLOBAL_BWD: GCVIT_GLOBAL}
-    run_slice("gcvit_tiny", GCVIT_SLICE_CONFIG, gcvit_fwd, records, 224)
+    # bf16 autocast: every K3a and K4 launch on the tensor cores
+    gcvit_fwd_routes = {(dot.KERNEL, "mma"): GCVIT_LOCAL, (dot.KERNEL_GLOBAL, "mma"): GCVIT_GLOBAL}
+    run_slice("gcvit_tiny", GCVIT_SLICE_CONFIG, gcvit_fwd, records, 224,
+              fwd_routes=gcvit_fwd_routes)
     # stages.0.blocks.1 is a global block: its qkv emits k and v only
     run_train_slice("gcvit_tiny", GCVIT_TRAIN_CONFIG, 224, gcvit_fwd, gcvit_bwd,
                     ("relative_position_bias_table", "stages.0.blocks.1.attn.qkv",
                      "global_block"), records,
                     {(dot.KERNEL_BWD, "mma"): GCVIT_LOCAL,
-                     (dot.KERNEL_GLOBAL_BWD, "mma"): GCVIT_GLOBAL})
+                     (dot.KERNEL_GLOBAL_BWD, "mma"): GCVIT_GLOBAL}, gcvit_fwd_routes)
     gradient_reference("gcvit_tiny", GCVIT_TRAIN_CONFIG, 224, {**gcvit_fwd, **gcvit_bwd},
                        "relative_position_bias_table")
     run_train_slice("davit_t", DAVIT_TRAIN_CONFIG, 224, {dot.KERNEL: DAVIT_SPATIAL},
                     {dot.KERNEL_BWD: DAVIT_SPATIAL}, ("main_blocks.0.0.0.attn.qkv",), records,
-                    {(dot.KERNEL_BWD, "mma"): DAVIT_SPATIAL})
+                    {(dot.KERNEL_BWD, "mma"): DAVIT_SPATIAL}, {(dot.KERNEL, "mma"): DAVIT_SPATIAL})
 
     # the JAX ResNet reaches no Pallas kernel, so the port's reaches none of
     # the hand-written kernels: every counter stays at 0 through these runs

@@ -511,6 +511,66 @@ def test_window_attention_bwd_f32_stays_on_the_template(cuda_device, mode):
     assert _dot_bwd_within(got, ref, (1e-4, 1e-4, 1e-3))
 
 
+def _dot_fwd(fn_local, fn_global, proj, qg, scale, bias, dout, ws, heads):
+    """The output of a local or global forward (dout unused)."""
+    if qg is None:
+        return fn_local(proj, scale, bias, ws, heads)
+    return fn_global(proj, qg, scale, bias, ws, heads)
+
+
+def _fwd_kernel_of(mode):
+    return dot.KERNEL_GLOBAL if mode == "global" else dot.KERNEL
+
+
+def _check_fwd_route(args, mode, dtype, route, atol):
+    """Two launches of the forward on ``args``: both on ``route`` by the
+    launches counted per route and by the library's report, bit-equal,
+    within ``atol`` of the plain version."""
+    kernel = _fwd_kernel_of(mode)
+    before = dict(dot.FWD_ROUTE_LAUNCHES)
+    got = _dot_fwd(dot.window_attention_fwd_cuda, dot.window_attention_global_fwd_cuda, *args)
+    again = _dot_fwd(dot.window_attention_fwd_cuda, dot.window_attention_global_fwd_cuda, *args)
+    ref = _dot_fwd(dot.window_attention_fwd_plain, dot.window_attention_global_fwd_plain, *args)
+    torch.cuda.synchronize()
+    assert dot.FWD_ROUTE_LAUNCHES[(kernel, route)] == before.get((kernel, route), 0) + 2
+    assert sum(dot.FWD_ROUTE_LAUNCHES.values()) == sum(before.values()) + 2
+    assert dot.forward_route(kernel, dtype) == route
+    assert torch.equal(got, again)  # no atomics: bit-identical from run to run
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert (got.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("stage,mode", STAGE_CASES)
+def test_window_attention_fwd_bf16_takes_the_tensor_cores_at_every_stage(cuda_device, stage,
+                                                                        mode):
+    """bf16 K3a (gcvit_tiny's local blocks with a bias, davit_t's without)
+    and K4 (gcvit_tiny's global blocks) at every stage shape: the
+    tensor-core route, bit-equal twice, within 2e-2 of the plain versions."""
+    _check_fwd_route(_stage_inputs(cuda_device, stage, mode), mode, torch.bfloat16, "mma", 2e-2)
+
+
+@pytest.mark.parametrize("stage,mode", [("gcvit1", "global"), ("gcvit3", "global"),
+                                        ("gcvit1", "bias"), ("davit3", "nobias")])
+def test_window_attention_fwd_bf16_takes_an_odd_batch(cuda_device, stage, mode):
+    """Nine images: the last local block takes one image, and at gcvit_tiny's
+    stage 1 the global walk's last slice of windows is shorter than the
+    others."""
+    args = _stage_inputs(cuda_device, stage, mode, b=9)
+    if (stage, mode) == ("gcvit1", "global"):
+        plan = dot.forward_scratch(9, 56, 56, 2, 7, cuda_device, True, True)
+        assert 1 < plan.windows_per_block and 64 % plan.windows_per_block
+    _check_fwd_route(args, mode, torch.bfloat16, "mma", 2e-2)
+
+
+@pytest.mark.parametrize("mode", ["bias", "nobias", "global"])
+def test_window_attention_fwd_f32_stays_on_the_template(cuda_device, mode):
+    """f32 K3a and K4 take the FMA template, by the launches counted per
+    route and by the route the library reports."""
+    args = _stage_inputs(cuda_device, "gcvit2" if mode != "nobias" else "davit2", mode, b=2,
+                         dtype=torch.float32)
+    _check_fwd_route(args, mode, torch.float32, "templates", 1e-4)
+
+
 # the global dq pass's window start; the planted fault below starts dq anew
 # at every window, so that dqg keeps only the last window's dq
 _DQ_WINDOW_START = "    if (within == 0) {  // a window's first step: its do rows have landed\n"

@@ -1,8 +1,8 @@
 """``tools/profile_torch_slice.py`` files each kernel of a trace under its
 kind: the window attention templates by their template flags (``<T, KC,
-kHasBias, kGlobal, kCosine, kHasMask>``), demangled or mangled, K1's
-tensor-core kernel under K1, and the passes of the tensor-core backward
-under K2, K3b or K5 by their mode flags."""
+kHasBias, kGlobal, kCosine, kHasMask>``), demangled or mangled, the
+tensor-core forward under K1, K3a or K4 and the passes of the tensor-core
+backward under K2, K3b or K5 by their mode flags."""
 import importlib.util
 import os
 
@@ -36,6 +36,25 @@ def _tool():
      "K1 swin_attention_fwd"),
     ("swin_fwd::combine_bias_mask(float const*, float const*, float*, int, int, int)",
      "K1 swin_attention_fwd"),
+    # the tensor-core forward's modes <tile rows / 16, images, kCosine,
+    # kHasBias, kGlobal>: K1 (cosine), K3a (with and without a bias), K4
+    # (global queries above L = 64) and K4's window walk, demangled and mangled
+    ("void swin_fwd::swin_fwd_kernel<4, 2, true, true, false>(__nv_bfloat16 const*)",
+     "K1 swin_attention_fwd"),
+    ("_ZN8swin_fwd15swin_fwd_kernelILi3ELi1ELb1ELb1ELb0EEEvPK13__nv_bfloat16S3_PKfS5_PS1_"
+     "N5wattn8GeometryEiS3_i", "K1 swin_attention_fwd"),
+    ("void swin_fwd::swin_fwd_kernel<4, 2, false, true, false>(__nv_bfloat16 const*)",
+     "K3a window_attention_fwd"),
+    ("_ZN8swin_fwd15swin_fwd_kernelILi4ELi2ELb0ELb0ELb0EEEvPK13__nv_bfloat16S3_PKfS5_PS1_"
+     "N5wattn8GeometryEiS3_i", "K3a window_attention_fwd"),
+    ("void swin_fwd::swin_fwd_kernel<4, 2, false, true, true>(__nv_bfloat16 const*)",
+     "K4 window_attention_global_fwd"),
+    ("_ZN8swin_fwd15swin_fwd_kernelILi4ELi2ELb0ELb1ELb1EEEvPK13__nv_bfloat16S3_PKfS5_PS1_"
+     "N5wattn8GeometryEiS3_i", "K4 window_attention_global_fwd"),
+    ("void swin_fwd::global_fwd_kernel<4>(__nv_bfloat16 const*, __nv_bfloat16 const*)",
+     "K4 window_attention_global_fwd"),
+    ("_ZN8swin_fwd17global_fwd_kernelILi3EEEvPK13__nv_bfloat16S3_PKfS5_iPS1_N5wattn8GeometryEi",
+     "K4 window_attention_global_fwd"),
     # GCViT's global and local blocks, DaViT's spatial blocks
     ("void wattn::window_attention_fwd_kernel<__nv_bfloat16, 4, true, true, false, false>(x)",
      "K4 window_attention_global_fwd"),
@@ -67,7 +86,7 @@ def _tool():
      "K5 window_attention_global_bwd"),
     ("_ZN8swin_mma15bwd_dkdv_kernelILb0ELb0ELb1ELb1EEEvPK13__nv_bfloat16S3_PKfS5_S5_iS3_PS1_"
      "S5_PfS7_N5wattn8GeometryEi", "K5 window_attention_global_bwd"),
-    ("swin_mma::pad_bias(float const*, float*, int, int, int)", "K3b/K5 bias pad"),
+    ("swin_mma::pad_bias(float const*, float*, int, int, int)", "K3/K4/K5 bias pad"),
     ("swin_mma::normalize_k(__nv_bfloat16 const*)", "K2 swin_attention_bwd"),
     ("swin_mma::combine_bias_mask(float const*)", "K2 swin_attention_bwd"),
     ("(anonymous namespace)::swin_attention_bwd_reduce(float const*)", "K2 swin_attention_bwd"),

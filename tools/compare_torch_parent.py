@@ -15,12 +15,15 @@ into its own ``build/``):
 1. Equality: every kernel wrapper call of ``chip_smoke.py``'s checks of K1 to
    K9 runs both builds on the same inputs; every output must be bit-equal to
    the parent's, except those of the kernels named by ``--changed`` in bf16
-   (by default K3b's and K5's, whose bf16 route this tree redesigns).
+   (by default K3a's and K4's, whose bf16 route this tree redesigns). Then
+   the SASS of K1's bf16 kernels in both builds, instruction by instruction
+   (printed, not required).
 2. ``--turns attention`` (the default): the window attention kernels in
    bf16 at their models' batch, in turns parent, new, new, parent (median of
-   20 CUDA-event timings each): K3b and K5 at gcvit_tiny's four stages, K3b
-   at davit_t's, K1 and K2 at swinv2_tiny's (windows 8 and 16); sums over
-   each model's forward or train-step backward, with the route of each shape.
+   20 CUDA-event timings each): K3a, K4, K3b and K5 at gcvit_tiny's four
+   stages, K3a and K3b at davit_t's, K1 and K2 at swinv2_tiny's (windows 8
+   and 16); sums over each model's forward or train-step backward, with the
+   route of each shape.
    ``--turns k9``: K9 at ``chip_smoke.py``'s eleven shapes (the JAX probe's
    two and B0's nine blocks) at batch 256, beside each B0 block's own eval
    forward; sums over the nine blocks.
@@ -28,7 +31,9 @@ into its own ``build/``):
    ``chip_smoke.py`` (bs 128, bf16, 10 one-step epochs after a 2-epoch
    warm-up of each package) through each package's own ``run``, in turns
    parent, new, new, parent: img/s over the train epochs (host clock, first
-   fetch to each step's loss read-back).
+   fetch to each step's loss read-back). ``--eval gcvit_tiny``: its smoke
+   inference slice (bs 128, bf16, 3 test batches after a one-batch warm-up
+   of each package) in the same turns: img/s over the eval loop.
 Exits non-zero when an output differs that must not.
 """
 import argparse
@@ -150,19 +155,47 @@ def k9_turns(cs, new_mb, old_mb):
           f"forwards {sums[4]:.4f} ms", flush=True)
 
 
+def k1_sass(cs, new_build, old_build):
+    """Whether K1's bf16 kernels (swin_fwd_kernel<tile rows / 16, images>,
+    in this tree <., ., true, true, false>) compile to the same instructions
+    in both builds (addresses and encodings aside)."""
+    import re
+
+    def instructions(build):
+        found = {}
+        for name, text in cs.sass_functions(
+                None, build.library_path("swin_attention_fwd")).items():
+            m = re.search(r"swin_fwd_kernelI(Li\dELi\dE)", name)
+            if m:
+                found[m.group(1)] = re.findall(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;", text)
+        return found
+
+    new, old = instructions(new_build), instructions(old_build)
+    same = sorted(k for k in old if new.get(k) == old[k])
+    print(f"K1 SASS: {len(same)} of {len(old)} bf16 kernels the same instructions as the "
+          f"parent's ({', '.join(f'{k}: {len(new.get(k, []))} / {len(old[k])}' for k in old)} "
+          f"instructions new / parent)", flush=True)
+
+
 def attention_turns(cs, new, old):
-    """bf16 K3b, K5 (gcvit_tiny, davit_t) and K1, K2 (swinv2_tiny at windows
-    8 and 16) at their models' batch, in turns; sums per model."""
+    """bf16 K3a, K4, K3b, K5 (gcvit_tiny, davit_t) and K1, K2 (swinv2_tiny
+    at windows 8 and 16) at their models' batch, in turns; sums per model."""
     import torch
     bf16 = torch.bfloat16
     new_dot, old_dot = new["window_attention_dot"], old["window_attention_dot"]
     new_swin, old_swin = new["swin_attention"], old["swin_attention"]
     cases = []  # (kind, label, launches per pass of the model, run(module))
     for i, st in enumerate(cs.GCVIT_STAGES, 1):
-        for kind, parts, n in (("K5", 2, st[6]), ("K3b", 3, st[5])):
+        for kind, parts, n in (("K4", 2, st[6]), ("K3a", 3, st[5]), ("K5", 2, st[6]),
+                               ("K3b", 3, st[5])):
             cases.append((kind, f"gcvit_tiny stage{i}", n, parts, st[:5], True))
     for i, st in enumerate(cs.DAVIT_STAGES, 1):
-        cases.append(("K3b", f"davit_t stage{i}", st[5], 3, st[:5], False))
+        for kind in ("K3a", "K3b"):
+            cases.append((kind, f"davit_t stage{i}", st[5], 3, st[:5], False))
+    wrappers = {"K3a": ("window_attention_fwd_cuda", new_dot.KERNEL, False),
+                "K4": ("window_attention_global_fwd_cuda", new_dot.KERNEL_GLOBAL, False),
+                "K3b": ("window_attention_bwd_cuda", new_dot.KERNEL_BWD, True),
+                "K5": ("window_attention_global_bwd_cuda", new_dot.KERNEL_GLOBAL_BWD, True)}
     sums = {}
 
     def record(kind, label, n, raw, extra=""):
@@ -177,17 +210,13 @@ def attention_turns(cs, new, old):
     for idx, (kind, label, n, parts, (hp, wp, c, heads, ws), with_bias) in enumerate(cases):
         proj, qg, scale, bias, dout = cs.dot_inputs(128, hp, wp, c, heads, ws, bf16, parts,
                                                     with_bias, 40 + idx)
-        if parts == 2:
-            def run(m, a=(proj, qg, scale, bias, dout, ws, heads)):
-                return lambda: m.window_attention_global_bwd_cuda(*a)
-            kernel = new_dot.KERNEL_GLOBAL_BWD
-        else:
-            def run(m, a=(proj, scale, bias, dout, ws, heads)):
-                return lambda: m.window_attention_bwd_cuda(*a)
-            kernel = new_dot.KERNEL_BWD
-        raw = turns(run(old_dot), run(new_dot))
-        record(kind, label, n, raw, f" ws {ws} bias {with_bias} route "
-               f"{new_dot.backward_route(kernel, bf16)}")
+        fn, kernel, backward = wrappers[kind]
+        args = (proj,) + ((qg,) if parts == 2 else ()) + (scale, bias) + \
+            ((dout,) if backward else ()) + (ws, heads)
+        raw = turns(lambda m=old_dot: getattr(m, fn)(*args),
+                    lambda m=new_dot: getattr(m, fn)(*args))
+        route = (new_dot.backward_route if backward else new_dot.forward_route)(kernel, bf16)
+        record(kind, label, n, raw, f" ws {ws} bias {with_bias} route {route}")
         del proj, qg, bias, dout
     for model in ("swinv2_tiny_window8_256", "swinv2_tiny_window16_256"):
         batch = cs.SWIN_MODELS[model][0]
@@ -207,6 +236,29 @@ def attention_turns(cs, new, old):
 
 
 TRAIN_CONFIGS = {"gcvit_tiny": "GCVIT_TRAIN_CONFIG", "davit_t": "DAVIT_TRAIN_CONFIG"}
+EVAL_CONFIGS = {"gcvit_tiny": "GCVIT_SLICE_CONFIG"}
+
+
+def eval_turns(cs, models):
+    """The models' smoke inference slices through both packages' ``run``."""
+    import copy
+    import torch
+    from torchok_tpu_torch.__main__ import run as new_run
+    from torchok_tpu_torch_parent.__main__ import run as old_run
+    for model in models:
+        config = getattr(cs, EVAL_CONFIGS[model])
+        warm = copy.deepcopy(config)
+        warm["trainer"]["limit_test_batches"] = 1
+        for fit in (old_run, new_run):  # warm-up: plans, allocator
+            fit(copy.deepcopy(warm), "test")
+        rates = []
+        for fit in (old_run, new_run, new_run, old_run):
+            trainer, _ = fit(copy.deepcopy(config), "test")
+            torch.cuda.synchronize()
+            rates.append(trainer.last_eval["images"] / trainer.last_eval["seconds"])
+        print(f"{model} eval bs128 bf16 img/s: parent {rates[0]:.2f}/{rates[3]:.2f} new "
+              f"{rates[1]:.2f}/{rates[2]:.2f}, new/parent "
+              f"{(rates[1] + rates[2]) / (rates[0] + rates[3]):.4f}", flush=True)
 
 
 def train_turns(cs, models):
@@ -233,10 +285,11 @@ def main():
     ap.add_argument("--parent", default=os.path.join(REPO, "build", "parent"),
                     help="directory holding torchok_tpu_torch_parent")
     ap.add_argument("--changed", nargs="*",
-                    default=["window_attention_bwd_cuda", "window_attention_global_bwd_cuda"],
+                    default=["window_attention_fwd_cuda", "window_attention_global_fwd_cuda"],
                     help="wrappers whose bf16 outputs may differ from the parent's")
     ap.add_argument("--turns", choices=("attention", "k9", "none"), default="attention")
     ap.add_argument("--train", nargs="*", default=[], choices=sorted(TRAIN_CONFIGS))
+    ap.add_argument("--eval", nargs="*", default=[], choices=sorted(EVAL_CONFIGS))
     ap.add_argument("--skip-equality", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.parent))
@@ -247,17 +300,18 @@ def main():
     import chip_smoke as cs
     new = {m: importlib.import_module(f"torchok_tpu_torch.ops.{m}") for m in MODS}
     old = {m: importlib.import_module(f"torchok_tpu_torch_parent.ops.{m}") for m in MODS}
-    from torchok_tpu_torch.utils.cuda_build import load_libraries as load_new
-    from torchok_tpu_torch_parent.utils.cuda_build import load_libraries as load_old
+    from torchok_tpu_torch.utils import cuda_build as new_build
+    from torchok_tpu_torch_parent.utils import cuda_build as old_build
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start = time.time()
-    other = threading.Thread(target=load_old, args=(LIBRARIES,))
+    other = threading.Thread(target=old_build.load_libraries, args=(LIBRARIES,))
     other.start()
-    load_new(LIBRARIES)
+    new_build.load_libraries(LIBRARIES)
     other.join()
     print(f"built both in {time.time() - start:.1f} s", flush=True)
+    k1_sass(cs, new_build, old_build)
     mismatches = []
     if not args.skip_equality:
         start = time.time()
@@ -270,6 +324,7 @@ def main():
         attention_turns(cs, new, old)
     elif args.turns == "k9":
         k9_turns(cs, new["mbconv_fused"], old["mbconv_fused"])
+    eval_turns(cs, args.eval)
     train_turns(cs, args.train)
     print(cs.card_line(), flush=True)
     if mismatches:

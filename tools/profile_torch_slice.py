@@ -36,9 +36,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KINDS = [  # first match wins
     ("K9 mbconv_fused_fwd", r"mbconv_(pass|gate)"),
-    # the bf16 bias of K3b and K5 at L = 49 in rows of 52 floats (one set-up
-    # kernel for both)
-    ("K3b/K5 bias pad", r"pad_bias"),
+    # the bf16 bias of K3a, K3b, K4 and K5 at L = 49 in rows of 52 floats
+    # (one set-up kernel for all four)
+    ("K3/K4/K5 bias pad", r"pad_bias"),
     # K2's bf16 set-up (swin_mma::normalize_k, combine_bias_mask), its f32
     # key-tiled kernel, its entry's reduce (its passes: _MMA_BWD below)
     ("K2 swin_attention_bwd", r"swin_attention_bwd|swin_mma|window_attention_bwd_tiled"),
@@ -78,8 +78,12 @@ _TEMPLATE_KINDS = {("fwd", "cosine"): "K1 swin_attention_fwd",
 
 # The bf16 tensor-core backward's two passes serve K2 (cosine), K3b and K5
 # (global queries): swin_mma::bwd_{dq,dkdv}_kernel<kCosine, kShifted,
-# kHasBias, kGlobal>.
+# kHasBias, kGlobal>. The bf16 tensor-core forward serves K1 (cosine), K3a
+# and K4: swin_fwd::swin_fwd_kernel<tile rows / 16, images, kCosine,
+# kHasBias, kGlobal> (K1's names before these flags have none), and K4's
+# window walk swin_fwd::global_fwd_kernel<tile rows / 16>.
 _MMA_BWD = re.compile(r"bwd_(?:dq|dkdv)_kernel")
+_MMA_FWD = re.compile(r"swin_fwd_kernel")
 
 
 def _bool_flags(name: str, kernel: str):
@@ -94,6 +98,14 @@ def _bool_flags(name: str, kernel: str):
 
 
 def kind_of(name: str) -> str:
+    if "global_fwd_kernel" in name:
+        return _TEMPLATE_KINDS[("fwd", "global")]
+    if _MMA_FWD.search(name):
+        flags = _bool_flags(name, r"swin_fwd_kernel")
+        if len(flags) == 3:
+            cosine, _, is_global = flags
+            return _TEMPLATE_KINDS[("fwd", "cosine" if cosine else
+                                    "global" if is_global else "plain")]
     if _MMA_BWD.search(name):
         flags = _bool_flags(name, r"bwd_(?:dq|dkdv)_kernel")
         if len(flags) == 4:

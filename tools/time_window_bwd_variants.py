@@ -48,24 +48,26 @@ SHAPES = [("stage1", 56, 56, 64, 2, 7), ("stage3", 14, 14, 256, 8, 14),
 BATCH = 128
 
 
-def build(name, out_dir):
-    """Both entries of ``name`` built from an edited copy of the sources;
-    returns (name, {entry: library path}, registers ptxas reports)."""
+def build(name, out_dir, edits=EDITS, header=HEADER,
+          entries=("window_attention_bwd", "window_attention_global_bwd")):
+    """The ``entries`` built from a copy of the sources whose ``header`` has
+    ``name``'s ``edits``; returns (name, {entry: library path}, registers
+    ptxas reports)."""
     from torchok_tpu_torch.utils.cuda_build import CSRC, NVCC_FLAGS, find_nvcc
     src = os.path.join(out_dir, name)
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(CSRC, src)
-    path = os.path.join(src, HEADER)
+    path = os.path.join(src, header)
     with open(path) as f:
         text = f.read()
-    for old, new in EDITS[name]:
+    for old, new in edits[name]:
         if text.count(old) != 1:
             raise SystemExit(f"{name}: the edit {old!r} matches {text.count(old)} times")
         text = text.replace(old, new)
     with open(path, "w") as f:
         f.write(text)
     libs, regs = {}, set()
-    for entry in ("window_attention_bwd", "window_attention_global_bwd"):
+    for entry in entries:
         lib = os.path.join(src, f"lib{entry}.so")
         proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", lib,
                                os.path.join(src, f"{entry}.cu")], capture_output=True, text=True)

@@ -206,19 +206,6 @@ __global__ void combine_bias_mask(const float* __restrict__ bias, const float* _
   }
 }
 
-// The plain modes' bias (rows of L floats) into rows of ld floats, the
-// columns from L on zero, so that its tiles load 16 bytes a thread.
-__global__ void pad_bias(const float* __restrict__ bias, float* __restrict__ out, int rows, int L,
-                         int ld) {
-  const size_t n = (size_t)rows * ld;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const size_t r = idx / ld;
-    const int c = (int)(idx - r * ld);
-    out[idx] = c < L ? bias[r * L + c] : 0.f;
-  }
-}
-
 // kn of every pixel and head with the arithmetic of normalize_rows (so with
 // the same bits), into the dv channels of dqkv (B, Hp, Wp, 3C) before any
 // dv is written there, and its f32 1 / |k| into rk (B, Hp, Wp, H). Pass 1
@@ -270,11 +257,6 @@ __device__ __forceinline__ void load_rinv(float* dst, const float* __restrict__ 
     const bool valid = r0 + r < L;
     cp_async4(dst + r, rk_image + (valid ? (size_t)pix[r0 + r] * nheads + h : 0), valid);
   }
-}
-
-template <bool kCosine, bool kShifted, bool kHasBias, bool kGlobal>
-__host__ __device__ constexpr bool valid_mode() {
-  return kCosine ? kHasBias && !kGlobal : !kShifted && (kHasBias || !kGlobal);
 }
 
 // ---- pass 1: row statistics and dq ---------------------------------------

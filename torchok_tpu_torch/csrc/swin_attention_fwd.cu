@@ -43,6 +43,55 @@
 #include "window_attention_fwd.cuh"
 #include "window_attention_tiled.cuh"
 
+namespace swin_fwd {
+
+// The cosine mode's three launches. kn: (B, Hp, Wp, C) bf16 scratch;
+// bias_mask: (nW, H, L, L) f32 scratch when mask is not null (unused
+// otherwise); images: images a block takes, 1 or 2.
+inline cudaError_t launch(const void* qkv, const void* scale, const void* bias, const void* mask,
+                          void* out, void* kn, void* bias_mask, const Geometry& g, int images,
+                          cudaStream_t st) {
+  const bool shifted = mask != nullptr;
+  const int z = (g.B + images - 1) / images;
+  if (kn == nullptr || (shifted && bias_mask == nullptr) || images < 1 || images > 2 ||
+      z > 65535 || g.nheads > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const int tr = fwd_tile_rows(g.L);
+  const size_t bytes = shared_bytes(g.L, images);
+  auto kernel = tr == 64 ? (images == 2 ? swin_fwd_kernel<4, 2, true, true, false>
+                                        : swin_fwd_kernel<4, 1, true, true, false>)
+                         : (images == 2 ? swin_fwd_kernel<3, 2, true, true, false>
+                                        : swin_fwd_kernel<3, 1, true, true, false>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const float* bi = static_cast<const float*>(bias);
+  if (shifted) {
+    const size_t n = (size_t)g.nW * g.nheads * g.L * g.L;
+    const size_t want = (n + 255) / 256;
+    combine_bias_mask<<<(int)(want < 4096 ? want : 4096), 256, 0, st>>>(
+        bi, static_cast<const float*>(mask), static_cast<float*>(bias_mask), g.nheads, g.nW,
+        g.L * g.L);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    bi = static_cast<const float*>(bias_mask);
+  }
+  const bf16* q = static_cast<const bf16*>(qkv);
+  bf16* k = static_cast<bf16*>(kn);
+  const size_t npix = (size_t)g.B * g.Hp * g.Wp;
+  const size_t want = (npix * g.nheads * 4 + 255) / 256;
+  normalize_k<<<(int)(want < 8192 ? want : 8192), 256, 0, st>>>(q, k, npix, g.nheads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(g.nW * tiles_of(g.L), g.nheads, z), 2 * tr, bytes, st>>>(
+      q, k, static_cast<const float*>(scale), bi, static_cast<bf16*>(out), g, shifted ? 1 : 0,
+      nullptr, g.L);
+  return cudaGetLastError();
+}
+
+}  // namespace swin_fwd
+
 namespace {
 
 using namespace wattn;

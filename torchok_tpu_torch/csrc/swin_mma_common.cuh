@@ -212,4 +212,25 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ image, int width, 
   }
 }
 
+// The modes of the tensor-core kernels (template flags <kCosine, kShifted,
+// kHasBias, kGlobal>): cosine with its bias (shifted or not; SwinV2), or
+// plain, never shifted, local with or without a bias, or global with one.
+template <bool kCosine, bool kShifted, bool kHasBias, bool kGlobal>
+__host__ __device__ constexpr bool valid_mode() {
+  return kCosine ? kHasBias && !kGlobal : !kShifted && (kHasBias || !kGlobal);
+}
+
+// The plain modes' bias, H L rows of L floats, into rows of ld floats, the
+// columns from L on zero, so that its tiles load 16 bytes a thread (L = 49).
+__global__ void pad_bias(const float* __restrict__ bias, float* __restrict__ out, int rows, int L,
+                         int ld) {
+  const size_t n = (size_t)rows * ld;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = idx / ld;
+    const int c = (int)(idx - r * ld);
+    out[idx] = c < L ? bias[r * L + c] : 0.f;
+  }
+}
+
 }  // namespace swin_mma

@@ -241,6 +241,12 @@ def _tile_rows(L: int) -> int:
     return -(-(-(-L // tiles)) // 16) * 16
 
 
+def _fwd_tile_rows(L: int) -> int:
+    """The tensor-core forward's tile height, as ``swin_fwd::fwd_tile_rows``:
+    :func:`_tile_rows`, and 48 where that would be shorter (L <= 32)."""
+    return 64 if _tile_rows(L) > 48 else 48
+
+
 class ForwardScratch(NamedTuple):
     """Grid and scratch of one launch of the bf16 tensor-core forward."""
     images_per_block: int      # images whose rows a block's warps take in turn
@@ -266,7 +272,7 @@ def forward_scratch(b: int, hp: int, wp: int, nheads: int, ws: int,
     into an (nW, H, L, L) f32 scratch."""
     L = ws * ws
     nw = (hp // ws) * (wp // ws)
-    tr = 64 if _tile_rows(L) > 48 else 48  # swin_fwd::fwd_tile_rows
+    tr = _fwd_tile_rows(L)
     per_block = min(_FWD_IMAGES, b)
     return ForwardScratch(per_block, tr, (nw * -(-L // _MMA_TILE), nheads, -(-b // per_block)),
                           2 * tr, b * hp * wp * nheads * _KERNEL_D,

@@ -18,14 +18,18 @@ A CUDA tensor goes to the hand-written Hopper kernels
 ``csrc/window_attention_global_{fwd,bwd}.cu`` (they launch or raise); a CPU
 tensor goes to the plain PyTorch versions of the same arithmetic below, which
 the CPU tests compare with the JAX package and ``chip_smoke.py`` compares
-with the kernels on the card. The two backward kernels route by dtype
-(:func:`backward_route`; launches counted per route in
-:data:`ROUTE_LAUNCHES`): bf16, what training runs under autocast, goes to
-the plain-dot modes of the tensor-core backward
-``csrc/swin_attention_bwd_mma.cuh`` (SwinV2's two passes on ``mma.sync``;
-the global mode sums dq over an image's windows in one block), f32 stays on
-the FMA template ``csrc/window_attention_bwd.cuh``.
-:func:`backward_scratch` sizes both routes' grids and scratch.
+with the kernels on the card. All four kernels route by dtype
+(:func:`forward_route`, :func:`backward_route`; launches counted per kernel
+and route in :data:`FWD_ROUTE_LAUNCHES` and :data:`ROUTE_LAUNCHES`). bf16,
+what inference and training run under autocast, goes to the plain-dot modes
+of SwinV2's tensor-core kernels on ``mma.sync``: the forward
+``csrc/swin_attention_fwd_mma.cuh`` (one QK^T in registers per window at L
+<= 64, the key tiles walked twice at L = 196; the global mode walks a slice
+of an image's windows with its q tile held in registers) and the backward
+``csrc/swin_attention_bwd_mma.cuh`` (two passes; the global mode sums dq
+over an image's windows in one block). f32 stays on the FMA templates
+``csrc/window_attention_{fwd,bwd}.cuh``. :func:`forward_scratch` and
+:func:`backward_scratch` size the grids and scratch.
 
 Rounding points (those of the Pallas kernels): q and k enter the product in
 the input dtype with f32 accumulation; the logits, the per-head scale (applied
@@ -46,8 +50,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from torchok_tpu_torch.ops import swin_attention
 from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
-from torchok_tpu_torch.ops.swin_attention import (_MMA_TILE, _images_per_block,
+from torchok_tpu_torch.ops.swin_attention import (_MMA_TILE, _fwd_tile_rows, _images_per_block,
                                                   from_windows, mma_images_per_block,
                                                   to_windows)
 
@@ -61,10 +66,13 @@ KERNEL_GLOBAL_BWD = "window_attention_global_bwd"
 PLAIN_GLOBAL_BWD = "window_attention_global_bwd_plain"
 KERNELS = (KERNEL, KERNEL_BWD, KERNEL_GLOBAL, KERNEL_GLOBAL_BWD)
 
-# the backward kernels' routes, as window_attention{,_global}_bwd_route number them
+# the kernels' routes, as window_attention{,_global}_{fwd,bwd}_route number
+# them (alike)
 BWD_ROUTES = ("templates", "mma")
-# launches of the two backward kernels per (kernel, route) (the wrappers add
-# one per launch)
+FWD_ROUTES = BWD_ROUTES
+# launches of the two forward and of the two backward kernels per (kernel,
+# route) (the wrappers add one per launch)
+FWD_ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL_D = 32
@@ -72,13 +80,14 @@ _KERNEL_MAX_WS = 16  # L = ws * ws <= 256 keys held in shared memory
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # qkv, scale, bias, out; dtype, B, Hp, Wp, C, nheads, ws; stream
-    KERNEL: [_VOID] * 4 + [_INT] * 7 + [_VOID],
+    # qkv, scale, bias, out, work; dtype, B, Hp, Wp, C, nheads, ws; stream
+    KERNEL: [_VOID] * 5 + [_INT] * 7 + [_VOID],
     # qkv, scale, bias, dout, dqkv, dbias, partial, row_stats, work; dtype,
     # B, Hp, Wp, C, nheads, ws, images_per_block; stream
     KERNEL_BWD: [_VOID] * 9 + [_INT] * 8 + [_VOID],
-    # kv, qg, scale, bias, out; dtype, B, Hp, Wp, C, nheads, ws; stream
-    KERNEL_GLOBAL: [_VOID] * 5 + [_INT] * 7 + [_VOID],
+    # kv, qg, scale, bias, out, work; dtype, B, Hp, Wp, C, nheads, ws,
+    # windows_per_block; stream
+    KERNEL_GLOBAL: [_VOID] * 6 + [_INT] * 8 + [_VOID],
     # kv, qg, scale, bias, dout, dkv, dqg, dbias, partial, row_stats, work;
     # dtype, B, Hp, Wp, C, nheads, ws, images_per_block; stream
     KERNEL_GLOBAL_BWD: [_VOID] * 11 + [_INT] * 8 + [_VOID],
@@ -201,13 +210,70 @@ def _function(name: str):
     return load_function(name, _ARGTYPES[name])
 
 
+def _route(kernel: str, dtype: torch.dtype) -> int:
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    _function(kernel)  # builds the four sources side by side
+    return load_function(kernel, [_INT], f"{kernel}_route")(DTYPE_CODE[dtype])
+
+
+def forward_route(kernel: str, dtype: torch.dtype) -> str:
+    """The route (one of :data:`FWD_ROUTES`) the forward kernel ``kernel``
+    (:data:`KERNEL` or :data:`KERNEL_GLOBAL`) takes for this dtype at every
+    window size, as the built library reports it."""
+    return FWD_ROUTES[_route(kernel, dtype)]
+
+
 def backward_route(kernel: str, dtype: torch.dtype) -> str:
     """The route (one of :data:`BWD_ROUTES`) the backward kernel ``kernel``
     (:data:`KERNEL_BWD` or :data:`KERNEL_GLOBAL_BWD`) takes for this dtype
     at every window size, as the built library reports it."""
-    from torchok_tpu_torch.utils.cuda_build import load_function
-    _function(kernel)  # builds the four sources side by side
-    return BWD_ROUTES[load_function(kernel, [_INT], f"{kernel}_route")(DTYPE_CODE[dtype])]
+    return BWD_ROUTES[_route(kernel, dtype)]
+
+
+class ForwardScratch(NamedTuple):
+    """Grid and scratch of one bf16 forward launch."""
+    images_per_block: int      # images whose rows a block's warps take in turn
+    windows_per_block: int     # windows of an image a block walks (global mode, L <= 64)
+    tile_rows: int             # query (and key) rows of a tile; a warp per 16
+    grid: Tuple[int, int, int]
+    threads: int               # per block
+    work: int                  # f32 entries of the bias in rows of L rounded up to 4, (H, L, ld)
+
+
+# images a block of the bf16 forward takes (swin_fwd::kPlainImages), and the
+# blocks per SM the global walk's window slices are sized for
+_FWD_IMAGES = 2
+_WALK_BLOCKS_PER_SM = 4
+
+
+def forward_scratch(b: int, hp: int, wp: int, nheads: int, ws: int, device: torch.device,
+                    has_bias: bool = True, global_queries: bool = False) -> ForwardScratch:
+    """Grid and scratch of the bf16 forward (``csrc/swin_attention_fwd_mma.
+    cuh``, its plain modes). Local, and global above L = 64: a block per
+    (window position, query tile, head, two images), a warp per 16 query rows
+    of each image in turn, so each bias tile the block loads serves two
+    images. Global at L <= 64 (one key tile): a block per (slice of an
+    image's windows, head, image) walks its slice with the image's q tile in
+    registers and the head's bias tile in shared memory; the slices are as
+    many as put about four blocks on every SM of the card (GCViT's stage 1:
+    two slices of 32 windows; one slice where heads x images fill the card
+    alone). With a bias and L not a multiple of 4 (L = 49) the bias is
+    copied into rows of L rounded up to 4 floats, so that its tiles load 16
+    bytes a thread; not for the walk, which loads its tile once per slice
+    4 bytes a thread."""
+    L = ws * ws
+    nw = (hp // ws) * (wp // ws)
+    tiles = -(-L // _MMA_TILE)
+    tr = _fwd_tile_rows(L)
+    walk = global_queries and tiles == 1
+    work = nheads * L * (-(-L // 4) * 4) if has_bias and L % 4 and not walk else 0
+    if walk:
+        slots = _WALK_BLOCKS_PER_SM * swin_attention._sm_count(device)
+        slices = max(1, min(nw, round(slots / (nheads * b))))
+        per = -(-nw // slices)
+        return ForwardScratch(1, per, tr, (-(-nw // per), nheads, b), 2 * tr, work)
+    return ForwardScratch(_FWD_IMAGES, 1, tr, (nw * tiles, nheads, -(-b // _FWD_IMAGES)),
+                          2 * tr, work)
 
 
 class BackwardScratch(NamedTuple):
@@ -299,16 +365,31 @@ def _scratch(plan: BackwardScratch, f32: dict) -> Tuple[Optional[torch.Tensor], 
     return tuple(torch.empty((n,), **f32) if n else None for n in (plan.row_stats, plan.work))
 
 
+def _forward_plan(proj: torch.Tensor, ws: int, nheads: int, has_bias: bool,
+                  global_queries: bool) -> Tuple[int, Optional[torch.Tensor]]:
+    """(windows a block walks, padded-bias scratch or None) of a forward
+    launch; f32 takes neither."""
+    if proj.dtype != torch.bfloat16:
+        return 1, None
+    b, hp, wp, _ = proj.shape
+    plan = forward_scratch(b, hp, wp, nheads, ws, proj.device, has_bias, global_queries)
+    work = torch.empty((plan.work,), dtype=torch.float32, device=proj.device) if plan.work \
+        else None
+    return plan.windows_per_block, work
+
+
 def window_attention_fwd_cuda(qkv: torch.Tensor, scale: torch.Tensor,
                               bias: Optional[torch.Tensor], ws: int, nheads: int) -> torch.Tensor:
     """Launch the Hopper forward kernel (arguments as the plain version)."""
     c = _check_args(KERNEL, qkv, 3, scale, bias, ws, nheads)
     b, hp, wp, _ = qkv.shape
+    _, work = _forward_plan(qkv, ws, nheads, bias is not None, False)
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _function(KERNEL)(qkv.data_ptr(), scale.data_ptr(), _ptr(bias), out.data_ptr(),
-                            DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
+                            _ptr(work), DTYPE_CODE[qkv.dtype], b, hp, wp, c, nheads, ws, stream)
     _raise_on(err, KERNEL)
+    FWD_ROUTE_LAUNCHES[(KERNEL, forward_route(KERNEL, qkv.dtype))] += 1
     return out
 
 
@@ -320,12 +401,15 @@ def window_attention_global_fwd_cuda(kv: torch.Tensor, qg: torch.Tensor, scale: 
     b, hp, wp, _ = kv.shape
     check_tensor(qg, "q_global", (b, ws * ws, c), kv.dtype, kv.device)
     _check_aligned(qg, "q_global")
+    windows, work = _forward_plan(kv, ws, nheads, True, True)
     out = torch.empty((b, hp, wp, c), dtype=kv.dtype, device=kv.device)
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     err = _function(KERNEL_GLOBAL)(kv.data_ptr(), qg.data_ptr(), scale.data_ptr(),
-                                   bias.data_ptr(), out.data_ptr(), DTYPE_CODE[kv.dtype],
-                                   b, hp, wp, c, nheads, ws, stream)
+                                   bias.data_ptr(), out.data_ptr(), _ptr(work),
+                                   DTYPE_CODE[kv.dtype], b, hp, wp, c, nheads, ws, windows,
+                                   stream)
     _raise_on(err, KERNEL_GLOBAL)
+    FWD_ROUTE_LAUNCHES[(KERNEL_GLOBAL, forward_route(KERNEL_GLOBAL, kv.dtype))] += 1
     return out
 
 
