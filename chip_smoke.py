@@ -34,7 +34,11 @@
      template), by the launches counted per route.
    * K6 (cosine attention on pre-partitioned head-major windows) at
      swinv2_tiny's four window shapes, masked and unmasked: f32 at batch 8
-     <= 1e-4, bf16 at batch 128 <= 2e-2 (one bf16 ulp of the largest output).
+     <= 1e-4 (the FMA template), bf16 at batch 128 <= 2e-2 (one bf16 ulp of
+     the largest output) and every output within one bf16 ulp of the plain
+     version's (``outside_one_ulp``; the tensor-core kernel
+     ``window_attention_mw_mma.cuh``, whose four kernels must hold HMMA in
+     their SASS), with the route of each stage printed.
    * K7 (1x1-conv GEMM with the BatchNorm prologue and statistics) at
      ResNet-50's four stages in both directions at batch 256 in bf16 and
      batch 8 in f32, all four flag combinations at stage 4, one ragged M: y
@@ -60,7 +64,8 @@
 4. Drives the four op paths at full width, counters zeroed before and read
    after: ``window_attention(..., use_kernel=True)`` forward and backward
    through the hybrid at swinv2_tiny's stage-1 shape (against the einsum
-   formulation); the 8-layer stage-4 bottleneck chain of
+   formulation; the f32 launch on the FMA route, the bf16 one on the
+   tensor cores); the 8-layer stage-4 bottleneck chain of
    ``tools/probe_torch_conv_bn.py`` forward and backward (8 K7 launches, no
    plain call, loss and gradients against the unfused chain); ``conv3x3_gemm``
    over the four shapes (against ``F.conv2d``); ``mbconv_fused`` over B0's
@@ -706,6 +711,28 @@ def mw_inputs(b_, heads, n_mask, dtype, seed):
     return q, k, v, logit_scale, bias, mask
 
 
+# K6's one-ulp check: each bf16 output within one bf16 ulp of the plain
+# version's, the ulp taken at the larger magnitude of the two but at no less
+# than ULP_FLOOR x max|v|. Below that floor the f32 roundings of both (a few
+# f32 ulps of a logit at a temperature of up to 100: about 1e-5 of an output's
+# scale max|v|) exceed an output's own ulp in either version. Rounding the
+# weights or the unit vectors to bf16 moves outputs by 2^-9 of that scale or
+# more, and fails it.
+ULP_FLOOR = 2.0 ** -7
+
+
+def outside_one_ulp(got, ref, v) -> int:
+    """How many elements of ``got`` lie more than one bf16 ulp from ``ref``
+    (both bf16 of one shape), the ulp as above with v the values attended
+    over."""
+    import torch
+    g, r = got.float(), ref.float()
+    floor = ULP_FLOOR * v.float().abs().max()
+    size = torch.maximum(torch.maximum(g.abs(), r.abs()), floor)
+    ulp = torch.exp2(torch.floor(torch.log2(size)) - 7)
+    return int(((g - r).abs() > ulp).sum().item())
+
+
 def mw_sdpa_inputs(q, k, v, logit_scale, bias, mask):
     """The closest single library call on what it needs prepared: q and k
     already normalised, q already scaled, bias (+ mask) as one additive
@@ -732,10 +759,19 @@ def mw_cost(b_, heads, n_mask, itemsize):
             4 * b_ * heads * L * L * d)
 
 
+# K6's tensor-core kernels mw_mma::mw_fwd_kernel<L, kHasMask>, mangled (not
+# the FMA template's window_attention_mw_fwd_kernel)
+MW_MMA = r"6mw_mma13mw_fwd_kernel"
+
+
 def check_k6():
     """K6 against its plain version at swinv2_tiny's window shapes, masked
-    (compact, one row per window type) and unmasked; the record sums the 12
-    blocks of one forward at batch 128."""
+    (compact, one row per window type) and unmasked, on the route printed
+    per stage (bf16 the tensor-core kernel, f32 the FMA template); bf16 also
+    within one ulp of the plain version element by element
+    (``outside_one_ulp``, which the einsum formulation's bf16 unit vectors
+    and weights fail: their count is printed). The record sums the 12 blocks
+    of one forward at batch 128."""
     import torch
     import torch.nn.functional as F
     from torchok_tpu_torch.ops import window_attention as wa
@@ -744,21 +780,34 @@ def check_k6():
     total = {"k": 0.0, "p": 0.0, "lib": 0.0, "bytes": 0, "flops": 0}
     for dtype, batch in ((torch.float32, CHECK_BATCH), (torch.bfloat16, 128)):
         name = dtype_name(dtype)
+        route = wa.forward_route(dtype, 64, 32)
+        if route != ("mma" if dtype == torch.bfloat16 else "fma") \
+                or wa.library_route(dtype, 64, 32) != route:
+            fail(f"K6 {name} at L 64, head dim 32 routes to {route}")
         for stage, (hp, wp, c, heads), masked, n in shape_cases(batch):
             nw = (hp // 8) * (wp // 8)
             args = mw_inputs(batch * nw, heads, nw if masked else 0, dtype, 30 + stage)
+            before = wa.FWD_ROUTE_LAUNCHES[route]
             got = wa.window_attention_mw_cuda(*args)
             ref = wa.window_attention_mw_plain(*args)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
-            ok = bool(torch.isfinite(got).all().item()) and err <= TOLERANCE[name]
+            ok = bool(torch.isfinite(got).all().item()) and err <= TOLERANCE[name] \
+                and wa.FWD_ROUTE_LAUNCHES[route] == before + 1
+            ulp = ""
+            if dtype == torch.bfloat16:
+                outside = outside_one_ulp(got, ref, args[2])
+                einsum = outside_one_ulp(wa.window_attention_einsum(*args), ref, args[2])
+                ok = ok and outside == 0
+                ulp = (f" outside_one_ulp={outside} of {got.numel()} (einsum formulation "
+                       f"{einsum})")
             del got, ref
             iters = TIMING_ITERS if batch > CHECK_BATCH else TIMING_ITERS_SMALL
             k_ms = median_ms(lambda: wa.window_attention_mw_cuda(*args), iters)
             p_ms = median_ms(lambda: wa.window_attention_mw_plain(*args), iters)
             line = (f"K6 {name} B{batch} stage{stage} q=({batch * nw},{heads},64,32) "
-                    f"mask={masked} x{n} blocks: max_abs_err={err:.3e} "
-                    f"(tol {TOLERANCE[name]:g}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+                    f"mask={masked} x{n} blocks route {route}: max_abs_err={err:.3e} "
+                    f"(tol {TOLERANCE[name]:g}){ulp} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
             if batch == 128:
                 worst_bf16 = max(worst_bf16, err)
                 qn, kn, vv, attn = mw_sdpa_inputs(*args)
@@ -1213,6 +1262,7 @@ def run_op_paths(records):
     hp, wp, c, heads = STAGES[0]
     nw = (hp // 8) * (wp // 8)
     LAUNCHES.clear()
+    wa.FWD_ROUTE_LAUNCHES.clear()
     for dtype, batch, out_tol, grad_tol in ((torch.float32, CHECK_BATCH, 2e-4, 1e-3),
                                             (torch.bfloat16, 128, 4e-2, 4e-2)):
         q, k, v, logit_scale, bias, mask = mw_inputs(batch * nw, heads, nw, dtype, 50)
@@ -1243,6 +1293,9 @@ def run_op_paths(records):
         del results, out_k, out_e, grads_k, grads_e, q, k, v, dout
     counts = launch_counts()
     require_launches("window_attention op path", counts, {wa.KERNEL: 2})
+    if dict(wa.FWD_ROUTE_LAUNCHES) != {"fma": 1, "mma": 1}:
+        fail("window_attention op path: expected the f32 launch on the FMA route and the bf16 "
+             f"one on the tensor cores, got {dict(wa.FWD_ROUTE_LAUNCHES)}")
     records[wa.KERNEL]["launches"] += counts[wa.KERNEL]
 
     # K7: the probe's bottleneck chain, fused against unfused, forward and
@@ -1616,15 +1669,10 @@ def ptxas_usage(kernel, needle):
     return found
 
 
-def check_mma_build(kind, library, needle, route, count=4, windows=None):
-    """The bf16 tensor-core kernels of K1 to K5 (the ``count`` instantiations
-    whose mangled names match the regular expression ``needle`` in
-    ``library``'s build):
-    registers and spills, HMMA in their SASS, and the route each window size
-    (by default those of ``SWIN_MODELS``) takes per dtype (``route``: bf16
-    on the tensor-core kernel, f32 on the FMA templates or the key-tiled
-    path)."""
-    import torch
+def check_hmma(kind, library, needle, count=4):
+    """The ``count`` tensor-core kernels of ``library``'s build whose mangled
+    names match the regular expression ``needle``: registers and spills, and
+    HMMA in their SASS."""
     usage = ptxas_usage(library, needle)
     for name, regs, stores, loads in usage:
         print(f"{kind} mma {name}: {regs} registers, spill stores {stores} B, "
@@ -1636,6 +1684,15 @@ def check_mma_build(kind, library, needle, route, count=4, windows=None):
     if len(usage) != count or len(sass) != count or len(with_hmma) != count:
         fail(f"{kind}'s tensor-core kernels: {len(usage)} in the build log, {len(sass)} in the "
              f"SASS, {len(with_hmma)} with HMMA (expected {count} each)")
+
+
+def check_mma_build(kind, library, needle, route, count=4, windows=None):
+    """The bf16 tensor-core kernels of K1 to K5 (``check_hmma``) and the
+    route each window size (by default those of ``SWIN_MODELS``) takes per
+    dtype (``route``: bf16 on the tensor-core kernel, f32 on the FMA
+    templates or the key-tiled path)."""
+    import torch
+    check_hmma(kind, library, needle, count)
     if windows is None:
         windows = sorted({st[4] for _, stages in SWIN_MODELS.values() for st in stages})
     for ws in windows:
@@ -1645,22 +1702,6 @@ def check_mma_build(kind, library, needle, route, count=4, windows=None):
         if routes["bfloat16"] != "mma" or routes["float32"] == "mma":
             fail(f"{kind} at ws {ws}: bf16 must take the tensor-core kernel and f32 the FMA "
                  f"kernels, got {routes}")
-
-
-def check_k9_build():
-    """K9's bf16 cluster kernels (k = 1, 3, 5, 7): registers and spills, and
-    HMMA (mma.sync) in their SASS."""
-    from torchok_tpu_torch.ops import mbconv_fused as mb
-    usage = ptxas_usage(mb.KERNEL, "mbconv_cluster_kernel")
-    for name, regs, stores, loads in usage:
-        print(f"K9 cluster {name}: {regs} registers, spill stores {stores} B, "
-              f"spill loads {loads} B", flush=True)
-    sass = {n: t for n, t in sass_functions(mb.KERNEL).items() if "mbconv_cluster_kernel" in n}
-    with_hmma = sorted(n for n, t in sass.items() if "HMMA" in t)
-    print(f"K9 SASS has HMMA in {len(with_hmma)} of its {len(sass)} cluster kernels", flush=True)
-    if len(usage) != 4 or len(sass) != 4 or len(with_hmma) != 4:
-        fail(f"K9's cluster kernels: {len(usage)} in the build log, {len(sass)} in the SASS, "
-             f"{len(with_hmma)} with HMMA (expected 4 each)")
 
 
 def run_swinv2_variants(records):
@@ -1752,7 +1793,9 @@ def main() -> None:
     for kind, kernel in (("K3a", dot.KERNEL), ("K4", dot.KERNEL_GLOBAL)):
         check_mma_build(kind, kernel, PLAIN_FWD_MMA,
                         lambda dtype, ws, k=kernel: dot.forward_route(k, dtype), 4, dot_windows)
-    check_k9_build()
+    # K9's cluster kernels (k = 1, 3, 5, 7); K6's mw_fwd_kernel<L, kHasMask>
+    check_hmma("K9 cluster", mbconv_fused.KERNEL, "mbconv_cluster_kernel")
+    check_hmma("K6", wa.KERNEL, MW_MMA)
     k1, k2 = check_k1(), check_k2()
     k3a, k3b = check_k3()
     k4, k5 = check_k4(), check_k5()

@@ -668,6 +668,111 @@ def test_window_attention_mw_kernel_matches_plain(cuda_device, dtype, atol, L, d
         assert (got - xla).abs().max().item() <= 2e-4
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _mw_temperatures(args):
+    """Head 0 at the clamped temperature of 100, where rounding unit vectors
+    to bf16 would move the logits by tenths."""
+    args[3][0] = 5.0
+    return args
+
+
+# bf16 on the tensor-core route keeps the f32 numerics: every output within
+# one bf16 ulp of the plain version's (chip_smoke.outside_one_ulp); the einsum
+# formulation, which rounds the unit vectors and the weights to bf16, is not
+@pytest.mark.parametrize("L", [64, 16])
+@pytest.mark.parametrize("n_mask", ["none", "one", "compact", "tiled"])
+def test_window_attention_mw_bf16_within_one_ulp_of_plain(cuda_device, L, n_mask):
+    from torchok_tpu_torch.ops import window_attention as wa
+    cs = _chip_smoke()
+    args = _mw_temperatures(_mw_inputs(cuda_device, torch.bfloat16, L, 32, n_mask, b=8, nw=4))
+    before = wa.FWD_ROUTE_LAUNCHES["mma"]
+    got = wa.window_attention_mw_cuda(*args)
+    again = wa.window_attention_mw_cuda(*args)
+    ref = wa.window_attention_mw_plain(*args)
+    torch.cuda.synchronize()
+    assert wa.FWD_ROUTE_LAUNCHES["mma"] == before + 2
+    assert torch.equal(got, again)
+    assert cs.outside_one_ulp(got, ref, args[2]) == 0
+    assert cs.outside_one_ulp(wa.window_attention_einsum(*args), ref, args[2]) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("L,d", [(64, 32), (16, 32), (64, 8), (16, 8)])
+def test_window_attention_mw_route_per_shape(cuda_device, dtype, L, d):
+    """bf16 at head dim 32 launches the tensor-core kernel, f32 and bf16 at
+    head dim 8 the FMA template: counted per route, and as the library
+    reports it."""
+    from torchok_tpu_torch.ops import window_attention as wa
+    args = _mw_inputs(cuda_device, dtype, L, d, "compact")
+    route = wa.forward_route(dtype, L, d)
+    assert route == ("mma" if dtype == torch.bfloat16 and d == 32 else "fma")
+    assert wa.library_route(dtype, L, d) == route
+    before = dict(wa.FWD_ROUTE_LAUNCHES)
+    wa.window_attention_mw_cuda(*args)
+    torch.cuda.synchronize()
+    after = dict(wa.FWD_ROUTE_LAUNCHES)
+    assert after.get(route, 0) == before.get(route, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("windows", [5, 3, 1])
+@pytest.mark.parametrize("n_mask", ["compact", "none"])
+def test_window_attention_mw_bf16_ragged_slices(cuda_device, monkeypatch, windows, n_mask):
+    """37 images of 4 windows, each block walking `windows` of a mask row's
+    37 (or, without a mask, of all 148): the last slice is shorter."""
+    from torchok_tpu_torch.ops import window_attention as wa
+    cs = _chip_smoke()
+    args = _mw_temperatures(_mw_inputs(cuda_device, torch.bfloat16, 64, 32, n_mask, b=37, nw=4))
+    rows = 4 if n_mask == "compact" else 1
+
+    def plan(b, heads, n, L, device):
+        assert (b, heads, n, L) == (148, 3, 4 if n_mask == "compact" else 0, 64)
+        return wa.ForwardPlan(windows, (rows * -(-(b // rows) // windows), heads), 128)
+    monkeypatch.setattr(wa, "forward_plan", plan)
+    got = wa.window_attention_mw_cuda(*args)
+    ref = wa.window_attention_mw_plain(*args)
+    torch.cuda.synchronize()
+    assert cs.outside_one_ulp(got, ref, args[2]) == 0
+
+
+def test_window_attention_mw_bf16_takes_each_windows_mask_row(cuda_device):
+    """A compact mask of 8 rows that all differ (each keeps a different
+    eighth of the keys): a window given a neighbour's row would attend to
+    other keys. Its output must be the plain version's, and differ from the
+    output under the rows shifted by one."""
+    from torchok_tpu_torch.ops import window_attention as wa
+    cs = _chip_smoke()
+    q, k, v, logit_scale, bias, _ = _mw_inputs(cuda_device, torch.bfloat16, 64, 32, "none",
+                                               b=6, nw=8)
+    keep = torch.arange(64, device=cuda_device)[None, None, :] // 8 == \
+        torch.arange(8, device=cuda_device)[:, None, None]
+    mask = torch.where(keep, 0.0, -100.0).expand(8, 64, 64).contiguous()
+    got = wa.window_attention_mw_cuda(q, k, v, logit_scale, bias, mask)
+    ref = wa.window_attention_mw_plain(q, k, v, logit_scale, bias, mask)
+    shifted = wa.window_attention_mw_plain(q, k, v, logit_scale, bias, mask.roll(1, 0))
+    torch.cuda.synchronize()
+    assert cs.outside_one_ulp(got, ref, v) == 0
+    assert (got.float() - shifted.float()).abs().max().item() > 0.5
+
+
+def test_window_attention_mw_bf16_refuses_misaligned_tensors(cuda_device):
+    from torchok_tpu_torch.ops import window_attention as wa
+    q, k, v, logit_scale, bias, mask = _mw_inputs(cuda_device, torch.bfloat16, 64, 32, "compact")
+    shifted = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda_device)[1:]
+    q_off = shifted[:q.numel()].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        wa.window_attention_mw_cuda(q_off, k, v, logit_scale, bias, mask)
+
+
 def test_window_attention_hybrid_on_the_card(cuda_device):
     from torchok_tpu_torch.ops import window_attention as wa
     q, k, v, logit_scale, bias, mask = _mw_inputs(cuda_device, torch.float32, 64, 32, "compact")

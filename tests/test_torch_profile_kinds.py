@@ -91,6 +91,14 @@ def _tool():
     ("swin_mma::combine_bias_mask(float const*)", "K2 swin_attention_bwd"),
     ("(anonymous namespace)::swin_attention_bwd_reduce(float const*)", "K2 swin_attention_bwd"),
     ("void wattn::window_attention_bwd_reduce(float const*)", "K3b/K5 dbias reduce"),
+    # K6: its FMA template (f32, bf16 at head dim 8) and its bf16 tensor-core
+    # kernel mw_fwd_kernel<L, kHasMask>, demangled and mangled
+    ("void (anonymous namespace)::window_attention_mw_fwd_kernel<float, 64, 32, true>(x)",
+     "K6 window_attention_mw_fwd"),
+    ("void mw_mma::mw_fwd_kernel<64, true>(__nv_bfloat16 const*, __nv_bfloat16 const*)",
+     "K6 window_attention_mw_fwd"),
+    ("_ZN6mw_mma13mw_fwd_kernelILi16ELb0EEEvPK13__nv_bfloat16S3_S3_PKfS5_S5_PS1_iiii",
+     "K6 window_attention_mw_fwd"),
     ("void at::native::vectorized_layer_norm_kernel<float, float, false>(x)", "LayerNorm"),
 ])
 def test_profile_files_each_kernel_under_its_kind(name, kind):

@@ -15,7 +15,7 @@ into its own ``build/``):
 1. Equality: every kernel wrapper call of ``chip_smoke.py``'s checks of K1 to
    K9 runs both builds on the same inputs; every output must be bit-equal to
    the parent's, except those of the kernels named by ``--changed`` in bf16
-   (by default K3a's and K4's, whose bf16 route this tree redesigns). Then
+   (by default K6's, whose bf16 route this tree redesigns). Then
    the SASS of K1's bf16 kernels in both builds, instruction by instruction
    (printed, not required).
 2. ``--turns attention`` (the default): the window attention kernels in
@@ -24,6 +24,9 @@ into its own ``build/``):
    stages, K3a and K3b at davit_t's, K1 and K2 at swinv2_tiny's (windows 8
    and 16); sums over each model's forward or train-step backward, with the
    route of each shape.
+   ``--turns k6``: K6 in bf16 at swinv2_tiny's four window shapes, masked
+   and unmasked, at batch 128 (``chip_smoke.check_k6``'s inputs), with the
+   route of each; the sum over the 12 blocks of a forward.
    ``--turns k9``: K9 at ``chip_smoke.py``'s eleven shapes (the JAX probe's
    two and B0's nine blocks) at batch 256, beside each B0 block's own eval
    forward; sums over the nine blocks.
@@ -153,6 +156,28 @@ def k9_turns(cs, new_mb, old_mb):
     print(f"K9 bf16 SUM over B0's nine blocks bs{cs.EFFNET_BATCH}: parent "
           f"{sums[0]:.4f}/{sums[3]:.4f} new {sums[1]:.4f}/{sums[2]:.4f} ms, block eval "
           f"forwards {sums[4]:.4f} ms", flush=True)
+
+
+def k6_turns(cs, new_wa, old_wa):
+    """K6 bf16 at batch 128 at swinv2_tiny's stage shapes, in turns."""
+    import torch
+    bf16 = torch.bfloat16
+    sums = [0.0] * 4
+    for stage, (hp, wp, c, heads), masked, n in cs.shape_cases(128):
+        nw = (hp // 8) * (wp // 8)
+        args = cs.mw_inputs(128 * nw, heads, nw if masked else 0, bf16, 30 + stage)
+        raw = turns(lambda: old_wa.window_attention_mw_cuda(*args),
+                    lambda: new_wa.window_attention_mw_cuda(*args))
+        for i, v in enumerate(raw):
+            sums[i] += n * v
+        print(f"K6 bf16 swinv2_tiny stage{stage} q=({128 * nw},{heads},64,32) mask={masked} "
+              f"x{n} route {new_wa.forward_route(bf16, 64, 32)}: parent "
+              f"{raw[0]:.4f}/{raw[3]:.4f} new {raw[1]:.4f}/{raw[2]:.4f} ms, new/parent "
+              f"{(raw[1] + raw[2]) / (raw[0] + raw[3]):.4f}", flush=True)
+        del args
+    print(f"K6 bf16 SUM swinv2_tiny (12 blocks, bs128): parent {sums[0]:.4f}/{sums[3]:.4f} new "
+          f"{sums[1]:.4f}/{sums[2]:.4f} ms, new/parent "
+          f"{(sums[1] + sums[2]) / (sums[0] + sums[3]):.4f}", flush=True)
 
 
 def k1_sass(cs, new_build, old_build):
@@ -285,9 +310,9 @@ def main():
     ap.add_argument("--parent", default=os.path.join(REPO, "build", "parent"),
                     help="directory holding torchok_tpu_torch_parent")
     ap.add_argument("--changed", nargs="*",
-                    default=["window_attention_fwd_cuda", "window_attention_global_fwd_cuda"],
+                    default=["window_attention_mw_cuda"],
                     help="wrappers whose bf16 outputs may differ from the parent's")
-    ap.add_argument("--turns", choices=("attention", "k9", "none"), default="attention")
+    ap.add_argument("--turns", choices=("attention", "k6", "k9", "none"), default="attention")
     ap.add_argument("--train", nargs="*", default=[], choices=sorted(TRAIN_CONFIGS))
     ap.add_argument("--eval", nargs="*", default=[], choices=sorted(EVAL_CONFIGS))
     ap.add_argument("--skip-equality", action="store_true")
@@ -322,6 +347,8 @@ def main():
             print("DIFFERS", name, shapes, dt, flush=True)
     if args.turns == "attention":
         attention_turns(cs, new, old)
+    elif args.turns == "k6":
+        k6_turns(cs, new["window_attention"], old["window_attention"])
     elif args.turns == "k9":
         k9_turns(cs, new["mbconv_fused"], old["mbconv_fused"])
     eval_turns(cs, args.eval)

@@ -45,7 +45,8 @@ KINDS = [  # first match wins
     # K1's bf16 kernel and its set-up (swin_fwd::...), its f32 key-tiled kernel
     ("K1 swin_attention_fwd", r"swin_attention_fwd|swin_fwd|window_attention_fwd_tiled"),
     ("K3b/K5 dbias reduce", r"window_attention_bwd_reduce"),
-    ("K6 window_attention_mw_fwd", r"window_attention_mw_fwd"),
+    # its f32 FMA template, and its bf16 tensor-core kernel (mw_mma::...)
+    ("K6 window_attention_mw_fwd", r"window_attention_mw_fwd|mw_mma"),
     ("K7 matmul_bn_fwd (+ reduce)", r"matmul_bn_(fwd|reduce)"),
     ("K8 conv3x3_gemm", r"conv3x3_gemm"),
     ("optimizer (Adam, foreach)", r"multi_tensor_apply|[Aa]dam"),

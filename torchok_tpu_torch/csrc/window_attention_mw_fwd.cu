@@ -29,10 +29,16 @@
 // and channel in bf16) for 4*L*D FLOPs per token and head, far below the
 // tensor-core ridge; f32 FMAs fed from shared memory, not device memory, are
 // its limit. Instantiated for L in {16, 64} and D in {8, 32}.
+//
+// Routes (window_attention_mw_fwd_route): bf16 at head dim 32 goes to the
+// tensor-core kernel of window_attention_mw_mma.cuh, with the same f32
+// numerics; f32, and bf16 at head dim 8, to the FMA template below.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "window_attention_mw_mma.cuh"
 
 namespace {
 
@@ -235,16 +241,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* logi
 
 }  // namespace
 
+// 0: the FMA template, 1: the tensor-core kernel (window_attention_mw_mma.cuh)
+static int route_of(int dtype, int L, int D) {
+  return dtype == 1 && D == 32 && (L == 16 || L == 64) ? 1 : 0;
+}
+
+// The route a launch of these arguments takes.
+extern "C" int window_attention_mw_fwd_route(int dtype, int L, int D) {
+  return route_of(dtype, L, D);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. mask may be null (then n_mask is not
-// read). Returns the launch's CUDA error (0 on success).
+// read). windows: the windows of a mask row each block of the tensor-core
+// route walks (ops.window_attention.forward_plan); the FMA route ignores it.
+// Returns the launch's CUDA error (0 on success).
 extern "C" int window_attention_mw_fwd(const void* q, const void* k, const void* v,
                                        const void* logit_scale, const void* bias,
                                        const void* mask, void* out, int dtype, int B, int H,
-                                       int L, int D, int n_mask, void* stream) {
+                                       int L, int D, int n_mask, int windows, void* stream) {
   if (B < 1 || H < 1 || H > 65535 || (mask != nullptr && n_mask < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route_of(dtype, L, D) == 1) {
+    if (L == 64) return (int)mw_mma::launch<64>(q, k, v, logit_scale, bias, mask, out, B, H, n_mask, windows, st);
+    return (int)mw_mma::launch<16>(q, k, v, logit_scale, bias, mask, out, B, H, n_mask, windows, st);
+  }
   if (dtype == 0) return (int)launch<float>(q, k, v, logit_scale, bias, mask, out, B, H, L, D, n_mask, st);
   if (dtype == 1) {
     return (int)launch<__nv_bfloat16>(q, k, v, logit_scale, bias, mask, out, B, H, L, D, n_mask, st);

@@ -17,17 +17,27 @@ Two execution paths, as in the JAX package:
   output). A CUDA tensor goes to the hand-written Hopper kernel
   ``csrc/window_attention_mw_fwd.cu`` (it launches or raises), a CPU tensor to
   :func:`window_attention_mw_plain`, the plain PyTorch version of the same
-  arithmetic. :class:`WindowAttentionHybrid` ties that forward to a backward
-  that recomputes through the einsum formulation, as ``_window_attention_hybrid``
-  does: the JAX package has no backward kernel here, so neither has the port.
+  arithmetic. The kernel routes by dtype and shape (:func:`forward_route`,
+  launches counted per route in :data:`FWD_ROUTE_LAUNCHES`): bf16 at head
+  dim 32 takes ``csrc/window_attention_mw_mma.cuh`` on the tensor cores (raw
+  bf16 q k^T scaled by the f32 inverse norms, the f32 weights split into two
+  bf16 terms against v: the same f32 numerics), a block per (mask row, head,
+  slice of that row's windows) sized by :func:`forward_plan`; f32, and bf16
+  at head dim 8, take the FMA template. :class:`WindowAttentionHybrid` ties
+  that forward to a backward that recomputes through the einsum
+  formulation, as ``_window_attention_hybrid`` does: the JAX package has no
+  backward kernel here, so neither has the port.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from torchok_tpu_torch.ops import swin_attention
 from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, LN_100, check_tensor
 
 _EPS = 1e-12
@@ -37,8 +47,16 @@ PLAIN = "window_attention_mw_plain"
 # the tokens per window and head dims the kernel is instantiated for
 KERNEL_L = (16, 64)
 KERNEL_D = (8, 32)
-# q, k, v, logit_scale, bias, mask, out; dtype, B_, H, L, D, n_mask; stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# q, k, v, logit_scale, bias, mask, out; dtype, B_, H, L, D, n_mask, windows; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# the kernel's routes, as window_attention_mw_fwd_route numbers them, and the
+# launches per route (the wrapper adds one per launch)
+FWD_ROUTES = ("fma", "mma")
+FWD_ROUTE_LAUNCHES: collections.Counter = collections.Counter()
+# blocks an SM of the tensor-core route (shared memory: 62 KB with a mask
+# tile at L = 64, 46 KB without), for which forward_plan sizes the slices
+_MMA_BLOCKS_PER_SM = {True: 3, False: 4}
+_MMA_THREADS = 128
 
 
 def _normalize(x: torch.Tensor, dim: int = -1, eps: float = _EPS) -> torch.Tensor:
@@ -108,12 +126,57 @@ def window_attention_mw_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.matmul(attn, v.float()).to(q.dtype)
 
 
+def forward_route(dtype: torch.dtype, L: int, d: int) -> str:
+    """The route (one of :data:`FWD_ROUTES`) a launch takes: ``mma`` (the
+    tensor-core kernel) for bf16 at head dim 32, ``fma`` (the FMA template)
+    for f32 and for bf16 at head dim 8. Raises on what the kernel does not
+    take."""
+    if dtype not in DTYPE_CODE:
+        raise TypeError(f"{KERNEL} takes float32 or bfloat16, got {dtype}")
+    if L not in KERNEL_L or d not in KERNEL_D:
+        raise ValueError(f"{KERNEL} takes L in {KERNEL_L} and head dim in {KERNEL_D}; "
+                         f"got L={L}, head dim {d}")
+    return FWD_ROUTES[int(dtype == torch.bfloat16 and d == 32)]
+
+
+class ForwardPlan(NamedTuple):
+    """Grid of one launch of the tensor-core route."""
+    windows_per_block: int   # windows of one mask row a block walks
+    grid: Tuple[int, int]    # (mask rows x slices, heads)
+    threads: int             # per block
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(b: int, heads: int, n_mask: int, L: int, device: torch.device) -> ForwardPlan:
+    """The tensor-core route's grid for ``b`` windows, ``n_mask`` mask rows
+    (0: no mask, one row of windows sharing the bias). Block ``x`` takes mask
+    row ``x % rows`` and windows ``w + (j0 + j) rows`` of it, ``j0 = (x //
+    rows) windows_per_block``, ``j < windows_per_block`` (the last slice of a
+    row may be shorter): each bias and mask tile is loaded once a slice. The
+    slices are as many as put about one wave of blocks on the card (3 an SM
+    with a mask, 4 without), so the largest slices go where the (row, head)
+    pairs are fewest."""
+    rows = max(n_mask, 1)
+    per_row = b // rows
+    slots = _MMA_BLOCKS_PER_SM[n_mask > 0] * swin_attention._sm_count(device)
+    slices = max(1, min(per_row, round(slots / (rows * heads))))
+    per = -(-per_row // slices)
+    return ForwardPlan(per, (rows * -(-per_row // per), heads), _MMA_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _function():
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    return load_function(KERNEL, _ARGTYPES)
+
+
 def window_attention_mw_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              logit_scale: torch.Tensor, bias: torch.Tensor,
                              mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch the Hopper kernel (same arguments as the plain version). Raises
     on devices, shapes, types or layouts it does not take: f32 or bf16, L in
-    ``KERNEL_L``, D in ``KERNEL_D``, everything contiguous."""
+    ``KERNEL_L``, D in ``KERNEL_D``, everything contiguous (and 16-byte
+    aligned on the tensor-core route)."""
     if q.device.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {q.device}")
     if q.dtype not in DTYPE_CODE:
@@ -121,9 +184,7 @@ def window_attention_mw_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4:
         raise ValueError(f"q must be (B_, H, L, D), got {tuple(q.shape)}")
     b, h, L, d = q.shape
-    if L not in KERNEL_L or d not in KERNEL_D:
-        raise ValueError(f"{KERNEL} takes L in {KERNEL_L} and head dim in {KERNEL_D}; "
-                         f"got L={L}, head dim {d}")
+    route = forward_route(q.dtype, L, d)
     check_tensor(q, "q", (b, h, L, d), q.dtype, q.device)
     check_tensor(k, "k", (b, h, L, d), q.dtype, q.device)
     check_tensor(v, "v", (b, h, L, d), q.dtype, q.device)
@@ -135,17 +196,33 @@ def window_attention_mw_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_tensor(mask, "mask", (n_mask, L, L), torch.float32, q.device)
         if n_mask < 1 or b % n_mask:
             raise ValueError(f"mask of {n_mask} window types does not divide {b} windows")
-    from torchok_tpu_torch.utils.cuda_build import load_function
     out = torch.empty_like(q)
+    windows = 0
+    if route == "mma":  # rows and tiles load 16 bytes a thread
+        if any(t is not None and t.data_ptr() % 16
+               for t in (q, k, v, bias, mask, out)):
+            raise ValueError(f"{KERNEL} in bf16 takes 16-byte aligned tensors")
+        windows = forward_plan(b, h, 0 if mask is None else n_mask, L,
+                               q.device).windows_per_block
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load_function(KERNEL, _ARGTYPES)(
+    err = _function()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        DTYPE_CODE[q.dtype], b, h, L, d, n_mask, stream)
+        DTYPE_CODE[q.dtype], b, h, L, d, n_mask, windows, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
     LAUNCHES[KERNEL] += 1
+    FWD_ROUTE_LAUNCHES[route] += 1
     return out
+
+
+def library_route(dtype: torch.dtype, L: int, d: int) -> str:
+    """The route the built library reports for these arguments (it must be
+    :func:`forward_route`'s)."""
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    _function()
+    fn = load_function(KERNEL, [ctypes.c_int] * 3, f"{KERNEL}_route")
+    return FWD_ROUTES[fn(DTYPE_CODE[dtype], L, d)]
 
 
 def _forward(q, k, v, logit_scale, bias, mask) -> torch.Tensor:
