@@ -880,8 +880,11 @@ def bn_cost(m, k, n, itemsize):
 
 
 def check_k7():
-    """K7 against its plain version; the record sums the eight launches of
-    the stage-4 chain's forward (four 1024 -> 256, four 256 -> 1024)."""
+    """K7 against its plain version, each call on the route its dtype takes
+    (bf16 ``wgmma``, f32 ``fma``); the record sums the eight launches of the
+    stage-4 chain's forward (four 1024 -> 256, four 256 -> 1024). Each timed
+    shape also times the bare bf16 ``torch.matmul(x, w)``: a floor for
+    reading x and writing y once, no function K7 computes."""
     import torch
     from torchok_tpu_torch.ops import conv_bn
     failures = []
@@ -892,8 +895,14 @@ def check_k7():
         nonlocal worst_bf16
         name = dtype_name(dtype)
         args = bn_inputs(m, k, n, dtype, seed)
+        route = conv_bn.forward_route(dtype, m, k, n)
+        before = dict(conv_bn.ROUTE_LAUNCHES)
         got = conv_bn.matmul_bn_cuda(*args, *flags)
         again = conv_bn.matmul_bn_cuda(*args, *flags)
+        routes = {r_: conv_bn.ROUTE_LAUNCHES[r_] - before.get(r_, 0) for r_ in conv_bn.ROUTES}
+        if route != ("wgmma" if dtype == torch.bfloat16 else "fma") or routes != {
+                r_: 2 * (r_ == route) for r_ in conv_bn.ROUTES}:
+            fail(f"K7 {name} {label}: expected both launches on the {route} route, got {routes}")
         ref = conv_bn.matmul_bn_plain(*args, *flags)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -914,17 +923,21 @@ def check_k7():
         if name == "bfloat16":
             worst_bf16 = max(worst_bf16, err)
         del got, again, ref
+        plan = conv_bn.forward_plan(m, k, n, conv_bn._sm_count(args[0].device), route)
         line = (f"K7 {name} {label} x=({m},{k}) w=({k},{n}) relu_in={flags[0]} "
-                f"with_affine={flags[1]}: " + ", ".join(parts) + f", bit-equal twice={same}")
+                f"with_affine={flags[1]} route {route} tiles 128x{plan.tile_n} grid "
+                f"{plan.tiles_n}x{plan.groups}: " + ", ".join(parts)
+                + f", bit-equal twice={same}")
         times = None
         if timing:
             k_ms = median_ms(lambda: conv_bn.matmul_bn_cuda(*args, *flags))
             p_ms = median_ms(lambda: conv_bn.matmul_bn_plain(*args, *flags))
             lib_ms = median_ms(lambda: bn_library(*args, *flags))
+            mm_ms = median_ms(lambda: torch.matmul(args[0], args[1]))
             nbytes, flops = bn_cost(m, k, n, args[0].element_size())
             b_ms, by = bound_ms(nbytes, flops, name)
             line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} unfused_ms={lib_ms:.4f} "
-                     f"bound_ms={b_ms:.4f} ({by})")
+                     f"matmul_ms={mm_ms:.4f} bound_ms={b_ms:.4f} ({by})")
             times = (k_ms, p_ms, lib_ms, nbytes, flops)
         print(line, flush=True)
         if not ok:
@@ -1310,9 +1323,13 @@ def run_op_paths(records):
     params = probe.make_params(0, wide, narrow, CHAIN_LAYERS, device)
     x = probe.make_input(1, m, wide, device, torch.bfloat16)
     LAUNCHES.clear()
+    conv_bn.ROUTE_LAUNCHES.clear()
     result = probe.parity(params, x)
     torch.cuda.synchronize()
     counts = launch_counts()
+    if dict(conv_bn.ROUTE_LAUNCHES) != {"wgmma": CHAIN_LAYERS}:
+        fail(f"conv_bn chain: expected {CHAIN_LAYERS} launches on the wgmma route, got "
+             f"{dict(conv_bn.ROUTE_LAUNCHES)}")
     print(f"conv_bn chain stage {CHAIN_STAGE} M={m} {wide}<->{narrow} x{CHAIN_LAYERS} bf16: "
           f"loss unfused={result['loss_unfused']:.6f} fused={result['loss_fused']:.6f}; "
           "max grad err / max |grad|: "
@@ -1771,10 +1788,11 @@ def main() -> None:
                         if not ln.startswith("ptxas info    : Compiling")
                         and "Function properties" not in ln), flush=True)
 
-    has_hgmma = sass_has_hgmma(conv_gemm.KERNEL)
-    print(f"K8 SASS has HGMMA: {str(has_hgmma).lower()}", flush=True)
-    if not has_hgmma:
-        fail("the bf16 loop of conv3x3_gemm was not compiled to wgmma (no HGMMA in its SASS)")
+    for kind, kernel in (("K7", conv_bn.KERNEL), ("K8", conv_gemm.KERNEL)):
+        has_hgmma = sass_has_hgmma(kernel)
+        print(f"{kind} SASS has HGMMA: {str(has_hgmma).lower()}", flush=True)
+        if not has_hgmma:
+            fail(f"the bf16 route of {kernel} was not compiled to wgmma (no HGMMA in its SASS)")
 
     # K1: swin_fwd_kernel<tile rows / 16, images a block>; K2: its two passes,
     # masked and unmasked

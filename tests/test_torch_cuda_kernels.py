@@ -887,6 +887,102 @@ def test_matmul_bn_kernel_refuses_what_it_does_not_take(cuda_device):
         conv_bn.matmul_bn_cuda(x, w, scale[:8], bias)
 
 
+def _bn_within(got, ref, rel, m):
+    """y within ``rel`` of the largest |y|; s1/s2 within rtol 1e-4 and an atol
+    of 1e-2 x max(1, max|y|), grown with sqrt(M / 256) past 256 rows as
+    ``chip_smoke.check_k7`` grows it (one-ulp flips of y and the other
+    summation order are a random walk over the rows)."""
+    top = ref[0].float().abs().max().item()
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= rel * top
+    atol = 1e-2 * max(1.0, top) * max(1.0, (m / 256) ** 0.5)
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert bool(((g - r).abs() <= 1e-4 * r.abs() + atol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_matmul_bn_routes_by_dtype(cuda_device, dtype):
+    """bf16 launches the wgmma kernel, f32 the FMA tile loop: counted per route."""
+    from torchok_tpu_torch.ops import conv_bn
+    args = _bn_inputs(cuda_device, dtype, 300, 64, 128)
+    route = conv_bn.forward_route(dtype, 300, 64, 128)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    before = dict(conv_bn.ROUTE_LAUNCHES)
+    conv_bn.matmul_bn_cuda(*args, True, True)
+    torch.cuda.synchronize()
+    after = dict(conv_bn.ROUTE_LAUNCHES)
+    assert after.get(route, 0) == before.get(route, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+# N above 256 at each tile width of the wgmma route: 328 columns leave a
+# last column tile of 8 (64-wide tiles) or 72 (128, 256); M ragged
+@pytest.mark.parametrize("tile_n", [64, 128, 256])
+@pytest.mark.parametrize("relu_in,with_affine", [(True, True), (False, False)])
+def test_matmul_bn_bf16_partial_last_column_tile(cuda_device, monkeypatch, tile_n, relu_in,
+                                                 with_affine):
+    from torchok_tpu_torch.ops import conv_bn
+    m, k, n = 1000, 136, 328
+    args = _bn_inputs(cuda_device, torch.bfloat16, m, k, n, seed=13)
+    tiles_n = -(-n // tile_n)
+
+    def plan(m_, k_, n_, sms, route="wgmma"):
+        assert (m_, k_, n_, route) == (m, k, n, "wgmma")
+        return conv_bn.ForwardPlan(tile_n, tiles_n, max(1, min(8, sms // tiles_n)))
+    monkeypatch.setattr(conv_bn, "forward_plan", plan)
+    got = conv_bn.matmul_bn_cuda(*args, relu_in, with_affine)
+    again = conv_bn.matmul_bn_cuda(*args, relu_in, with_affine)
+    ref = conv_bn.matmul_bn_plain(*args, relu_in, with_affine)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    _bn_within(got, ref, 2.0 ** -7, m)
+
+
+# ResNet-50's stage 2 at batch 256 (M 802,816): pure streaming, 256 -> 64 and
+# 64 -> 256 (one slab of depth a tile)
+@pytest.mark.parametrize("k,n", [(256, 64), (64, 256)], ids=["256to64", "64to256"])
+def test_matmul_bn_bf16_at_stage_2(cuda_device, k, n):
+    from torchok_tpu_torch.ops import conv_bn
+    m = 256 * 56 * 56
+    args = _bn_inputs(cuda_device, torch.bfloat16, m, k, n, seed=14)
+    before = conv_bn.ROUTE_LAUNCHES["wgmma"]
+    got = conv_bn.matmul_bn_cuda(*args, True, True)
+    again = conv_bn.matmul_bn_cuda(*args, True, True)
+    ref = conv_bn.matmul_bn_plain(*args, True, True)
+    torch.cuda.synchronize()
+    assert conv_bn.ROUTE_LAUNCHES["wgmma"] == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    _bn_within(got, ref, 2.0 ** -7, m)
+
+
+def test_matmul_bn_bf16_refuses_a_misaligned_base(cuda_device):
+    """TMA reads x, w, scale and bias from 16-byte aligned addresses: a
+    contiguous view one element into its storage is refused."""
+    from torchok_tpu_torch.ops import conv_bn
+    x, w, scale, bias = _bn_inputs(cuda_device, torch.bfloat16, 64, 64, 64)
+    storage = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda_device)
+    x_off = storage[1:1 + x.numel()].view(x.shape).copy_(x)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        conv_bn.matmul_bn_cuda(x_off, w, scale, bias)
+    scale_off = torch.empty(72, device=cuda_device)[1:65].copy_(scale)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_bn.matmul_bn_cuda(x, w, scale_off, bias)
+
+
+def test_matmul_bn_bf16_route_runs_wgmma(cuda_device):
+    """The built library's SASS holds HGMMA, Hopper's warpgroup MMA."""
+    import shutil
+    import subprocess
+    from torchok_tpu_torch.ops import conv_bn
+    from torchok_tpu_torch.utils.cuda_build import library_path, load_library
+    load_library(conv_bn.KERNEL)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path(conv_bn.KERNEL))],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass
+
+
 # ---------------------------------------------------------------------------
 # K8: 3x3 conv as an implicit GEMM
 # ---------------------------------------------------------------------------

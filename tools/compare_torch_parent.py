@@ -15,7 +15,7 @@ into its own ``build/``):
 1. Equality: every kernel wrapper call of ``chip_smoke.py``'s checks of K1 to
    K9 runs both builds on the same inputs; every output must be bit-equal to
    the parent's, except those of the kernels named by ``--changed`` in bf16
-   (by default K6's, whose bf16 route this tree redesigns). Then
+   (by default K7's, whose bf16 route this tree redesigns). Then
    the SASS of K1's bf16 kernels in both builds, instruction by instruction
    (printed, not required).
 2. ``--turns attention`` (the default): the window attention kernels in
@@ -30,6 +30,11 @@ into its own ``build/``):
    ``--turns k9``: K9 at ``chip_smoke.py``'s eleven shapes (the JAX probe's
    two and B0's nine blocks) at batch 256, beside each B0 block's own eval
    forward; sums over the nine blocks.
+   ``--turns k7``: K7 in bf16 (affine and ReLU on) at ResNet-50's four 1x1
+   stages at batch 256, both ways (``chip_smoke.check_k7``'s inputs), with
+   the tile and grid of each; the sum over the 8 launches of the stage-4
+   chain. Then K8 in bf16 at its four 3x3 shapes (``chip_smoke.py``'s op
+   path inputs), which shares its TMA and wgmma helpers with K7.
 3. ``--train gcvit_tiny davit_t``: each model's smoke train slice of
    ``chip_smoke.py`` (bs 128, bf16, 10 one-step epochs after a 2-epoch
    warm-up of each package) through each package's own ``run``, in turns
@@ -156,6 +161,48 @@ def k9_turns(cs, new_mb, old_mb):
     print(f"K9 bf16 SUM over B0's nine blocks bs{cs.EFFNET_BATCH}: parent "
           f"{sums[0]:.4f}/{sums[3]:.4f} new {sums[1]:.4f}/{sums[2]:.4f} ms, block eval "
           f"forwards {sums[4]:.4f} ms", flush=True)
+
+
+def k7_turns(cs, new, old):
+    """K7 bf16 at ResNet-50's 1x1 stages and K8 bf16 at its 3x3 shapes, bs 256,
+    in turns."""
+    import torch
+    bf16 = torch.bfloat16
+    new_cb, old_cb = new["conv_bn"], old["conv_bn"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chain = [0.0] * 4
+    for stage, pixels, wide, narrow in cs.BN_STAGES:
+        for k, n in ((wide, narrow), (narrow, wide)):
+            m = cs.RESNET_BATCH * pixels
+            args = cs.bn_inputs(m, k, n, bf16, 10 + stage)
+            raw = turns(lambda: old_cb.matmul_bn_cuda(*args, True, True),
+                        lambda: new_cb.matmul_bn_cuda(*args, True, True))
+            if stage == cs.CHAIN_STAGE:
+                for i, v in enumerate(raw):
+                    chain[i] += cs.CHAIN_LAYERS // 2 * v
+            plan = new_cb.forward_plan(m, k, n, sms)
+            print(f"K7 bf16 stage{stage} x=({m},{k}) w=({k},{n}) tiles 128x{plan.tile_n} grid "
+                  f"{plan.tiles_n}x{plan.groups}: parent {raw[0]:.4f}/{raw[3]:.4f} new "
+                  f"{raw[1]:.4f}/{raw[2]:.4f} ms, new/parent "
+                  f"{(raw[1] + raw[2]) / (raw[0] + raw[3]):.4f}", flush=True)
+            del args
+    print(f"K7 bf16 SUM stage-{cs.CHAIN_STAGE} chain ({cs.CHAIN_LAYERS} launches, "
+          f"bs{cs.RESNET_BATCH}): parent {chain[0]:.4f}/{chain[3]:.4f} new "
+          f"{chain[1]:.4f}/{chain[2]:.4f} ms, new/parent "
+          f"{(chain[1] + chain[2]) / (chain[0] + chain[3]):.4f}", flush=True)
+    new_cg, old_cg = new["conv_gemm"], old["conv_gemm"]
+    total = [0.0] * 4
+    for idx, (hw, ch) in enumerate(cs.CONV_SHAPES):
+        x, w = cs.conv_inputs(cs.RESNET_BATCH, hw, hw, ch, ch, bf16, 60 + idx)
+        raw = turns(lambda: old_cg.conv3x3_gemm_cuda(x, w), lambda: new_cg.conv3x3_gemm_cuda(x, w))
+        for i, v in enumerate(raw):
+            total[i] += v
+        print(f"K8 bf16 ({cs.RESNET_BATCH},{hw},{hw},{ch}): parent {raw[0]:.4f}/{raw[3]:.4f} new "
+              f"{raw[1]:.4f}/{raw[2]:.4f} ms", flush=True)
+        del x, w
+    print(f"K8 bf16 SUM over the four shapes: parent {total[0]:.4f}/{total[3]:.4f} new "
+          f"{total[1]:.4f}/{total[2]:.4f} ms, new/parent "
+          f"{(total[1] + total[2]) / (total[0] + total[3]):.4f}", flush=True)
 
 
 def k6_turns(cs, new_wa, old_wa):
@@ -310,9 +357,10 @@ def main():
     ap.add_argument("--parent", default=os.path.join(REPO, "build", "parent"),
                     help="directory holding torchok_tpu_torch_parent")
     ap.add_argument("--changed", nargs="*",
-                    default=["window_attention_mw_cuda"],
+                    default=["matmul_bn_cuda"],
                     help="wrappers whose bf16 outputs may differ from the parent's")
-    ap.add_argument("--turns", choices=("attention", "k6", "k9", "none"), default="attention")
+    ap.add_argument("--turns", choices=("attention", "k6", "k7", "k9", "none"),
+                    default="attention")
     ap.add_argument("--train", nargs="*", default=[], choices=sorted(TRAIN_CONFIGS))
     ap.add_argument("--eval", nargs="*", default=[], choices=sorted(EVAL_CONFIGS))
     ap.add_argument("--skip-equality", action="store_true")
@@ -349,6 +397,8 @@ def main():
         attention_turns(cs, new, old)
     elif args.turns == "k6":
         k6_turns(cs, new["window_attention"], old["window_attention"])
+    elif args.turns == "k7":
+        k7_turns(cs, new, old)
     elif args.turns == "k9":
         k9_turns(cs, new["mbconv_fused"], old["mbconv_fused"])
     eval_turns(cs, args.eval)

@@ -1,38 +1,29 @@
-// One tile-product main loop for Hopper (sm_90a), shared by matmul_bn_fwd.cu
-// (1x1 conv as a GEMM with a prologue on A and a column-sum epilogue) and
-// conv3x3_gemm.cu (3x3 conv as an implicit GEMM with a gathering A loader).
+// The f32 tile-product main loop for Hopper (sm_90a), shared by the f32
+// routes of matmul_bn_fwd.cu (1x1 conv as a GEMM with a prologue on A and a
+// column-sum epilogue) and conv3x3_gemm.cu (3x3 conv as an implicit GEMM with
+// a gathering A loader). Their bf16 routes run on wgmma instead
+// (matmul_bn_wgmma.cuh, conv3x3_wgmma.cuh); f32 exists for correctness tests
+// (TF32 would change its numbers).
 //
 //   C (M, N) = A (M, K) @ W (K, N),  f32 accumulation,
 // where A is never a tensor in memory: an ALoader produces its 16-byte pieces
-// (8 bf16 or 4 f32 values along K) from whatever the caller has, and W is a
-// row-major (K, N) matrix. K and N must be multiples of 8 so that every piece
-// is whole; M is free (rows past M are zeros and are never written).
+// (4 f32 values along K) from whatever the caller has, and W is a row-major
+// (K, N) matrix. K and N must be multiples of 8 so that every piece is whole;
+// M is free (rows past M are zeros and are never written).
 //
 // A block of 256 threads owns a 128 x 64 tile of C and walks K in slabs of
 // BK. The next slab travels from device memory to registers while the
 // current one is multiplied from shared memory, then goes into the other half
-// of a double buffer: one __syncthreads per slab. bf16 operands meet in the tensor
-// cores through nvcuda::wmma (mma.sync, 16x16x16, f32 accumulators; eight
-// warps as 4 x 2, each 32 x 32 of the tile); f32 operands meet in f32 FMAs
-// (TF32 is not f32), each thread an 8 x 4 register tile. Either way the
-// finished tile is parked in shared memory as f32 and handed to the caller's
-// epilogue, which rounds once to the output type.
+// of a double buffer: one __syncthreads per slab. The operands meet in f32
+// FMAs (TF32 is not f32), each thread an 8 x 4 register tile; the finished
+// tile is parked in shared memory and handed to the caller's epilogue.
 //
 // A block loops over the row tiles blockIdx.x, blockIdx.x + gridDim.x, ...
 // of its column tile blockIdx.y: what a sequential TPU grid would carry from
 // step to step (matmul_bn's column sums) lives in the epilogue object's
 // registers across that loop.
-//
-// Measured on an H100 with phases compiled out of throwaway copies: the
-// loads, the products and the rest of a slab step add up rather than overlap,
-// and the whole runs at about 75 TFLOP/s. A faster version wants ldmatrix with
-// larger warp tiles or wgmma, cp.async or TMA stages instead of the register
-// hop, and no integer division in the loaders; this one is the simple version
-// that is right.
 #pragma once
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -48,13 +39,9 @@ constexpr int kMinBlocks = 2;
 constexpr int kCPad = 4;  // f32 staging tile row padding
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
@@ -90,52 +77,6 @@ template <typename T> struct Layout {
 
 // The product of one slab, accumulated over the slabs of a tile.
 template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  using L = Layout<__nv_bfloat16>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2][2];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ __forceinline__ void step(const __nv_bfloat16* as, const __nv_bfloat16* bs) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-    const int wm = warp / 2;  // rows 32 wm
-    const int wn = warp % 2;  // columns 32 wn
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], as + (32 * wm + 16 * i) * L::kLda + kk, L::kLda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * L::kLdb + 32 * wn + 16 * j, L::kLdb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* cs) {
-    const int warp = threadIdx.x / 32;
-    const int wm = warp / 2;
-    const int wn = warp % 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(cs + (32 * wm + 16 * i) * L::kLdc + 32 * wn + 16 * j,
-                                        acc[i][j], L::kLdc, nvcuda::wmma::mem_row_major);
-  }
-};
 
 template <> struct Mma<float> {
   using L = Layout<float>;

@@ -18,14 +18,19 @@
 // small kernel adds the rows in fixed order: no atomics, so two launches give
 // the same bits.
 //
-// What bounds it: at ResNet-50's wide shapes (M 802,816, K 256, N 64) the
-// kernel must move x and y once (0.5 GB) for 26 GFLOP, far below the
-// tensor-core ridge: device memory bounds it, and the fusion's whole point is
-// that the normalised input and the statistics pass never touch that memory.
-// At the deep shapes (M 12,544, K 2048, N 512) the product bounds it, and
-// this first version's mma.sync tiles (gemm_tile.cuh) sit well below what
-// wgmma would reach.
+// Two routes, chosen by the element type (ops/conv_bn.py::forward_route):
+// bf16 runs matmul_bn_wgmma.cuh (wgmma with the prologue on A in registers,
+// TMA stages, a persistent warp-specialised grid); f32, which exists for
+// correctness tests (TF32 would change its numbers), runs the f32-FMA tile
+// loop of gemm_tile.cuh with the loader and epilogue below.
+//
+// What bounds it: at ResNet-50's 1x1 shapes (M 12,544 to 802,816 at batch
+// 256, K and N 64 to 2048) the kernel must move x and y once for at most
+// 2 x 1024 products a row, below the tensor-core ridge: device memory bounds
+// it, and the fusion's whole point is that the normalised input and the
+// statistics pass never touch that memory.
 #include "gemm_tile.cuh"
+#include "matmul_bn_wgmma.cuh"
 
 namespace {
 
@@ -132,8 +137,7 @@ __global__ void matmul_bn_reduce_kernel(const float* __restrict__ partial, float
 
 template <typename T, bool kRelu, bool kAffine>
 cudaError_t launch(const void* x, const void* w, const void* scale, const void* bias, void* y,
-                   void* s1, void* s2, void* partial, int M, int K, int N, int m_blocks,
-                   cudaStream_t stream) {
+                   void* partial, int M, int K, int N, int m_blocks, cudaStream_t stream) {
   auto kernel = matmul_bn_fwd_kernel<T, kRelu, kAffine>;
   constexpr size_t bytes = Layout<T>::kSharedBytes;
   cudaError_t err =
@@ -143,45 +147,55 @@ cudaError_t launch(const void* x, const void* w, const void* scale, const void* 
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<T*>(y), static_cast<float*>(partial), M, K, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  matmul_bn_reduce_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(s1), static_cast<float*>(s2),
-      m_blocks, N);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(bool relu, bool affine, const void* x, const void* w, const void* scale,
-                     const void* bias, void* y, void* s1, void* s2, void* partial, int M, int K,
-                     int N, int m_blocks, cudaStream_t st) {
-  if (relu && affine) return launch<T, true, true>(x, w, scale, bias, y, s1, s2, partial, M, K, N, m_blocks, st);
-  if (relu) return launch<T, true, false>(x, w, scale, bias, y, s1, s2, partial, M, K, N, m_blocks, st);
-  if (affine) return launch<T, false, true>(x, w, scale, bias, y, s1, s2, partial, M, K, N, m_blocks, st);
-  return launch<T, false, false>(x, w, scale, bias, y, s1, s2, partial, M, K, N, m_blocks, st);
+cudaError_t launch_fma(bool relu, bool affine, const void* x, const void* w, const void* scale,
+                       const void* bias, void* y, void* partial, int M, int K, int N,
+                       int m_blocks, cudaStream_t st) {
+  if (relu && affine) return launch<float, true, true>(x, w, scale, bias, y, partial, M, K, N, m_blocks, st);
+  if (relu) return launch<float, true, false>(x, w, scale, bias, y, partial, M, K, N, m_blocks, st);
+  if (affine) return launch<float, false, true>(x, w, scale, bias, y, partial, M, K, N, m_blocks, st);
+  return launch<float, false, false>(x, w, scale, bias, y, partial, M, K, N, m_blocks, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. partial is scratch of 2 * m_blocks * N
-// floats; m_blocks (1 .. row tiles of 128) is how many blocks share the rows
-// of one column tile. Returns the first CUDA error of the launches (0 on success).
+// dtype: 0 = float32 (the FMA route: tile_n must be 64, the grid is groups x
+// column tiles), 1 = bfloat16 (the wgmma route: tile_n 64, 128 or 256, the
+// grid column tiles x groups; x, w, scale and bias 16-byte aligned). groups
+// (1 .. row tiles of 128) is how many blocks share the row tiles of one
+// column tile; partial is scratch of 2 * groups * N floats. Returns the first
+// CUDA error of the launches (0 on success).
 extern "C" int matmul_bn_fwd(const void* x, const void* w, const void* scale, const void* bias,
                              void* y, void* s1, void* s2, void* partial, int dtype, int M, int K,
-                             int N, int relu_in, int with_affine, int m_blocks, void* stream) {
+                             int N, int relu_in, int with_affine, int tile_n, int groups,
+                             void* stream) {
   const int m_tiles = (M + tilegemm::BM - 1) / tilegemm::BM;
-  if (M < 1 || K < 8 || N < 8 || K % 8 != 0 || N % 8 != 0 || m_blocks < 1 || m_blocks > m_tiles ||
-      (N + tilegemm::BN - 1) / tilegemm::BN > 65535) {
+  if (M < 1 || K < 8 || N < 8 || K % 8 != 0 || N % 8 != 0 || groups < 1 || groups > m_tiles ||
+      tile_n < 64) {
     return (int)cudaErrorInvalidValue;
   }
+  const long long tiles_n = (N + tile_n - 1) / tile_n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    return (int)dispatch<float>(relu_in != 0, with_affine != 0, x, w, scale, bias, y, s1, s2,
-                                partial, M, K, N, m_blocks, st);
+    if (tile_n != tilegemm::BN || tiles_n > 65535) return (int)cudaErrorInvalidValue;
+    err = launch_fma(relu_in != 0, with_affine != 0, x, w, scale, bias, y, partial, M, K, N,
+                     groups, st);
+  } else if (dtype == 1) {
+    if (tiles_n * groups > 2147483647LL) return (int)cudaErrorInvalidValue;
+    err = bnwg::launch(tile_n, relu_in != 0, with_affine != 0,
+                       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+                       static_cast<const float*>(scale), static_cast<const float*>(bias),
+                       static_cast<__nv_bfloat16*>(y), static_cast<float*>(partial), M, K, N,
+                       groups, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return (int)dispatch<__nv_bfloat16>(relu_in != 0, with_affine != 0, x, w, scale, bias, y, s1,
-                                        s2, partial, M, K, N, m_blocks, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  matmul_bn_reduce_kernel<<<(N + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(s1), static_cast<float*>(s2),
+      groups, N);
+  return (int)cudaGetLastError();
 }

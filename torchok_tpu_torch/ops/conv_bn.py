@@ -14,13 +14,20 @@ so both sides of the BatchNorm between two of them fold into the product:
 :func:`matmul_bn` sends a CUDA tensor to the hand-written Hopper kernel
 ``csrc/matmul_bn_fwd.cu`` (it launches or raises) and a CPU tensor to
 :func:`matmul_bn_plain`, the plain PyTorch version with the same rounding
-points. The backward is plain tensor code and ``torch.matmul`` (the JAX
-package leaves it to XLA), wired by :class:`MatmulBnFunction`.
+points. The kernel routes by dtype (:func:`forward_route`, launches counted
+per route in :data:`ROUTE_LAUNCHES`): bf16 takes ``csrc/matmul_bn_wgmma.cuh``
+(wgmma with the prologue on A in registers, TMA stages, one persistent block
+an SM, tiles and grid from :func:`forward_plan`), f32 the FMA tile loop of
+``csrc/gemm_tile.cuh``. The backward is plain tensor code and
+``torch.matmul`` (the JAX package leaves it to XLA), wired by
+:class:`MatmulBnFunction`.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -28,10 +35,16 @@ from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
 
 KERNEL = "matmul_bn_fwd"
 PLAIN = "matmul_bn_plain"
-_TILE_M, _TILE_N = 128, 64  # the kernel's block tile (csrc/gemm_tile.cuh)
+# the kernel's routes, as the entry's dtype code picks them, and the launches
+# per route (the wrapper adds one per launch)
+ROUTES = ("fma", "wgmma")
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
+TILE_M = 128               # rows of a tile on both routes
+FMA_TILE_N = 64            # columns of a tile of csrc/gemm_tile.cuh
+WGMMA_TILE_N = (64, 128, 256)  # the tile widths of csrc/matmul_bn_wgmma.cuh
 # x, w, scale, bias, y, s1, s2, partial; dtype, M, K, N, relu_in, with_affine,
-# m_blocks; stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# tile_n, groups; stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _activate(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -56,15 +69,63 @@ def matmul_bn_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias:
         return y, yf.sum(0), (yf * yf).sum(0)
 
 
-def _row_blocks(m: int, n: int, device: torch.device) -> int:
-    """Blocks that share the row tiles of one column tile. The kernel keeps
-    two blocks on an SM, so the whole grid is at most two per SM (rounded
-    down: one block more than fits would run alone in a second wave); each
-    block walks many tiles and the partial sums stay few."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    m_tiles = -(-m // _TILE_M)
-    n_tiles = -(-n // _TILE_N)
-    return max(1, min(m_tiles, 2 * sms // n_tiles))
+def _check_shape(m: int, k: int, n: int) -> None:
+    if m < 1 or k < 8 or n < 8 or k % 8 or n % 8:
+        raise ValueError(f"{KERNEL} takes M >= 1 and K, N multiples of 8; got M={m}, K={k}, N={n}")
+
+
+def forward_route(dtype: torch.dtype, m: int, k: int, n: int) -> str:
+    """The route (one of :data:`ROUTES`) a launch takes: ``wgmma`` for bf16,
+    ``fma`` for f32. Raises on what the kernel does not take."""
+    if dtype not in DTYPE_CODE:
+        raise TypeError(f"{KERNEL} takes float32 or bfloat16 x, got {dtype}")
+    _check_shape(m, k, n)
+    return ROUTES[int(dtype == torch.bfloat16)]
+
+
+class ForwardPlan(NamedTuple):
+    """Tiles and grid of one launch: ``tiles_n * groups`` blocks."""
+    tile_n: int    # columns of a tile (its rows: TILE_M)
+    tiles_n: int   # column tiles
+    groups: int    # blocks that share the row tiles of one column tile
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(m: int, k: int, n: int, sms: int, route: str = "wgmma") -> ForwardPlan:
+    """The grid of a launch on a card of ``sms`` SMs. Group ``j`` of a column
+    tile takes its row tiles ``j, j + groups, ...``.
+
+    ``fma``: 128 x 64 tiles, at most two blocks an SM in all (rounded down:
+    one block more than fits would run alone in a second wave).
+    ``wgmma``: one persistent block an SM, each with one column tile. Up to N
+    = 256 a tile spans all of N (the next of 64, 128, 256), so x is read and
+    transformed once; above, column tiles of 256 or of 128, whichever leaves
+    the busiest block the fewest columns to compute (ties: 256)."""
+    _check_shape(m, k, n)
+    m_tiles = -(-m // TILE_M)
+    if route == "fma":
+        tiles_n = -(-n // FMA_TILE_N)
+        return ForwardPlan(FMA_TILE_N, tiles_n, max(1, min(m_tiles, 2 * sms // tiles_n)))
+    if route != "wgmma":
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+
+    def plan(tile_n: int) -> ForwardPlan:
+        tiles_n = -(-n // tile_n)
+        return ForwardPlan(tile_n, tiles_n, max(1, min(m_tiles, sms // tiles_n)))
+
+    widths = [min(w for w in WGMMA_TILE_N if w >= n)] if n <= WGMMA_TILE_N[-1] else [256, 128]
+    return min((plan(w) for w in widths),
+               key=lambda p: (-(-m_tiles // p.groups) * p.tile_n, -p.tile_n))
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _function():
+    from torchok_tpu_torch.utils.cuda_build import load_function
+    return load_function(KERNEL, _ARGTYPES)
 
 
 def matmul_bn_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -73,37 +134,37 @@ def matmul_bn_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: 
     """Launch the Hopper kernel and its reduction (same arguments and results
     as :func:`matmul_bn_plain`). Raises on what it does not take: f32 or bf16
     ``x`` and ``w`` of one type, K and N multiples of 8, f32 ``scale``/``bias``
-    of length K, everything contiguous and on one CUDA device."""
+    of length K, everything contiguous and on one CUDA device (and, in bf16,
+    16-byte aligned: TMA reads it)."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
-    if x.dtype not in DTYPE_CODE:
-        raise TypeError(f"{KERNEL} takes float32 or bfloat16 x, got {x.dtype}")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"x must be (M, K) and w (K, N), got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
     m, k = x.shape
     n = w.shape[1]
-    if m < 1 or k % 8 or n % 8 or not k or not n:
-        raise ValueError(f"{KERNEL} takes M >= 1 and K, N multiples of 8; got M={m}, K={k}, N={n}")
+    route = forward_route(x.dtype, m, k, n)
     check_tensor(x, "x", (m, k), x.dtype, x.device)
     check_tensor(w, "w", (k, n), x.dtype, x.device)
     check_tensor(scale, "scale", (k,), torch.float32, x.device)
     check_tensor(bias, "bias", (k,), torch.float32, x.device)
-    from torchok_tpu_torch.utils.cuda_build import load_function
-    m_blocks = _row_blocks(m, n, x.device)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (x, w, scale, bias)):
+        raise ValueError(f"{KERNEL} in bf16 takes 16-byte aligned tensors")
+    plan = forward_plan(m, k, n, _sm_count(x.device), route)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     s1 = torch.empty((n,), **f32)
     s2 = torch.empty((n,), **f32)
-    partial = torch.empty((2, m_blocks, n), **f32)
+    partial = torch.empty((2, plan.groups, n), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = load_function(KERNEL, _ARGTYPES)(
+    err = _function()(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         s1.data_ptr(), s2.data_ptr(), partial.data_ptr(), DTYPE_CODE[x.dtype], m, k, n,
-        int(bool(relu_in)), int(bool(with_affine)), m_blocks, stream)
+        int(bool(relu_in)), int(bool(with_affine)), plan.tile_n, plan.groups, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
     LAUNCHES[KERNEL] += 1
+    ROUTE_LAUNCHES[route] += 1
     return y, s1, s2
 
 
