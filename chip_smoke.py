@@ -108,7 +108,20 @@
    * one f32 forward + backward of swinv2_tiny (windows 8 and 16) and of
      gcvit_tiny on two images on the card (kernels) against the CPU (plain
      versions), over all parameter gradients, within 1e-3 of the largest
-     gradient.
+     gradient;
+   * the classification north star ``configs/classification_shapes.yaml``
+     (``SHAPES_RECIPE``) at its short budget (6 epochs, 8000 images;
+     resnet18 at 32x32, ``steps_per_execution`` 16, CSVLogger,
+     ModelCheckpoint, FinalizeLogger): valid/Accuracy >= 0.7573 - 0.03 at
+     step 288, the reference's CSV rows, status ``success``, one best
+     checkpoint and ``last.ckpt``, and ``+mode=test`` from the best
+     checkpoint within 1e-3 of its logged accuracy; 0 hand-written launches;
+   * resume on K1 and K2: swinv2_tiny's smoke train config for 3 one-step
+     epochs twice, and for 2 then resumed from ``last.ckpt`` for the third;
+     exact K1 and K2 counts in each run, and the resumed run's parameters
+     and Adam moments bit-equal to the uninterrupted run's where the two
+     uninterrupted runs are bit-equal (else no further from it than they
+     are from each other, tensor by tensor).
 6. Prints ``{"kernels": [...]}`` (K1 to K9; K1/K2's times are summed over
    one swinv2_tiny_window8 forward or backward, as before the other windows ran, the K3 to K5 times
    over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
@@ -204,6 +217,77 @@ RESNET_TRAIN_CONFIG = train_config("resnet50", 224, batch=256)
 EFFNET_SLICE_CONFIG = slice_config("efficientnet_b0", 224, batch=256)
 EFFNET_TRAIN_CONFIG = train_config("efficientnet_b0", 224, batch=256)
 MNV3_SLICE_CONFIG = slice_config("mobilenetv3_large_100", 224, batch=256)
+
+_SHAPES_TRANSFORM = [{"name": "Resize", "params": {"height": 32, "width": 32}},
+                     {"name": "Normalize", "params": {"mean": [0.485, 0.456, 0.406],
+                                                      "std": [0.229, 0.224, 0.225]}},
+                     {"name": "ToTensorV2"}]
+_SHAPES_METRIC = {"params": {"task": "multiclass", "num_classes": 10},
+                  "mapping": {"preds": "prediction", "target": "target"}}
+
+
+def _shapes_data(train, num_samples):
+    return [{"dataloader": {"batch_size": 128, "num_workers": 8, "drop_last": train,
+                            "shuffle": train},
+             "dataset": {"name": "SyntheticShapesDataset",
+                         "params": {"hardness": 0.6, "input_dtype": "float16", "train": train,
+                                    "num_samples": num_samples},
+                         "transform": copy.deepcopy(_SHAPES_TRANSFORM)}}]
+
+
+# configs/classification_shapes.yaml, the classification north star (a CPU
+# test holds the two equal)
+SHAPES_RECIPE = {
+    "task": {"name": "ClassificationTask",
+             "params": {"backbone_name": "resnet18",
+                        "backbone_params": {"pretrained": False, "in_channels": 3},
+                        "pooling_name": "Pooling", "head_name": "ClassificationHead",
+                        "head_params": {"num_classes": 10},
+                        "inputs": [{"shape": [3, 32, 32], "dtype": "float16"}]}},
+    "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
+                               "mapping": {"input": "prediction", "target": "target"}}]},
+    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}},
+                      "scheduler": {"name": "ExponentialLR", "params": {"gamma": 0.97}}}],
+    "data": {"TRAIN": _shapes_data(True, 20000), "VALID": _shapes_data(False, 4000)},
+    "trainer": {"accelerator": "auto", "max_epochs": 30, "precision": 16,
+                "num_sanity_val_steps": 0, "steps_per_execution": 16},
+    "seed_params": {"seed": 42, "workers": True},
+    "logger": {"log_dir": "${oc.env:HOME}/.cache/torchok_tpu/shapes/logs",
+               "experiment_name": "resnet18", "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}",
+               "name": "CSVLogger"},
+    "callbacks": [{"name": "ModelCheckpoint",
+                   "params": {"monitor": "valid/F1Score", "save_top_k": 1, "save_last": True,
+                              "mode": "max", "save_weights_only": False}},
+                  {"name": "FinalizeLogger"}],
+    "metrics": [{"name": "Accuracy", **_SHAPES_METRIC}, {"name": "F1Score", **_SHAPES_METRIC}],
+}
+# the short budget of tools/north_star_baselines.json ("classification"), held
+# one-sided to valid/Accuracy >= 0.7573 - 0.03 as tools/check_north_stars.py does
+SHAPES_OVERRIDES = ["trainer.max_epochs=6", "data.TRAIN.0.dataset.params.num_samples=8000"]
+SHAPES_REFERENCE = 0.7573
+SHAPES_TOLERANCE = 0.03
+# drop_last takes the super-batch of 16 x 128: 8000 // 2048 = 3 executions an epoch
+SHAPES_STEPS = 6 * 3 * 16
+# metrics.csv's rows: the epoch logs at each epoch's last step and the train
+# loss where the step count passes a multiple of log_every_n_steps (50)
+# between executions of 16 steps
+SHAPES_CSV_STEPS = [48, 64, 96, 112, 144, 160, 192, 208, 240, 256, 288]
+SHAPES_CSV_HEADER = ["step", "train/loss", "train/Accuracy", "train/F1Score",
+                     "train/epoch_time_s", "train/images_per_sec", "valid/loss",
+                     "valid/Accuracy", "valid/F1Score", "lr"]
+
+
+def shapes_config(log_dir: str) -> dict:
+    """The shapes recipe with the short budget's overrides, logging under
+    ``log_dir``."""
+    from torchok_tpu_torch.constructor.config import apply_override
+    cfg = copy.deepcopy(SHAPES_RECIPE)
+    for override in SHAPES_OVERRIDES:
+        key, _, value = override.partition("=")
+        apply_override(cfg, key, value)
+    cfg["logger"]["log_dir"] = log_dir
+    return cfg
+
 TRAIN_STEPS = 10
 BATCHES = 3
 BLOCKS = (2, 2, 6, 2)  # SwinBlocks per stage of swinv2_tiny
@@ -1754,6 +1838,159 @@ def run_swinv2_variants(records):
         del model, image, feat
 
 
+def run_shapes_recipe():
+    """``configs/classification_shapes.yaml`` at its short budget through
+    ``run(..., "train")`` as a user runs it (``steps_per_execution`` 16, bf16
+    autocast, 8 loader workers, CSVLogger, ModelCheckpoint, FinalizeLogger):
+    the reference's accuracy, step count and CSV rows, the status, one best
+    checkpoint and ``last.ckpt``, then ``+mode=test`` from the best
+    checkpoint reproducing its epoch's accuracy. ResNet-18 reaches no
+    hand-written kernel (nor does the JAX one a Pallas kernel)."""
+    import csv
+    import glob
+    import tempfile
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.callbacks.model_checkpoint import ModelCheckpoint
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="shapes_") as tmp:
+        LAUNCHES.clear()
+        trainer, logs = run(shapes_config(os.path.join(tmp, "train")), "train")
+        torch.cuda.synchronize()
+        require_launches("shapes recipe train", launch_counts(), {})
+        stats = trainer.last_fit
+        accuracy = logs.get("valid/Accuracy", float("nan"))
+        floor = SHAPES_REFERENCE - SHAPES_TOLERANCE
+        print(f"shapes recipe (resnet18, short budget): valid/Accuracy={accuracy:.4f} at "
+              f"global_step {trainer.global_step} (the reference's short budget 0.7573, "
+              f"floor {floor:.4f}); valid/F1Score={logs.get('valid/F1Score', float('nan')):.4f}; "
+              f"smoke train img/s {stats['images'] / stats['seconds']:.2f} (a smoke reading: "
+              f"host clock, first fetch to each epoch's loss read-back, {stats['steps']} steps, "
+              f"{stats['images']} images in {stats['seconds']:.3f} s, bs128 x 16 per execution, "
+              f"bf16) on {card_line()}", flush=True)
+        if not accuracy >= floor:
+            fail(f"shapes recipe: valid/Accuracy {accuracy:.4f} below {floor:.4f}")
+        if trainer.global_step != SHAPES_STEPS or stats["steps"] != SHAPES_STEPS:
+            fail(f"shapes recipe: {trainer.global_step} steps ({stats['steps']} run), "
+                 f"expected {SHAPES_STEPS}")
+        log_dir = trainer.logger.log_dir
+        with open(os.path.join(log_dir, "metrics.csv"), newline="") as f:
+            rows = list(csv.reader(f))
+        steps = [int(r[0]) for r in rows[1:]]
+        train_rows = [r for r in rows[1:] if all(v == "" for v in r[2:])]
+        print(f"shapes recipe metrics.csv: header {rows[0]}, steps {steps}, "
+              f"{len(train_rows)} train-loss rows", flush=True)
+        if rows[0] != SHAPES_CSV_HEADER or steps != SHAPES_CSV_STEPS or len(train_rows) != 5:
+            fail(f"shapes recipe: metrics.csv rows {rows[0]} at steps {steps}, expected "
+                 f"{SHAPES_CSV_HEADER} at {SHAPES_CSV_STEPS} with 5 train-loss rows")
+        with open(os.path.join(log_dir, "status.txt")) as f:
+            status = f.read()
+        if status != "success":
+            fail(f"shapes recipe: status.txt reads {status!r}")
+        saver = next(cb for cb in trainer.callbacks if isinstance(cb, ModelCheckpoint))
+        kept = sorted(os.path.basename(p) for p in glob.glob(os.path.join(saver.dirpath, "*")))
+        best = [k for k in kept if re.fullmatch(r"epoch=\d+-step=\d+\.ckpt", k)]
+        print(f"shapes recipe checkpoints: {kept}; best {os.path.basename(saver.best_model_path)}"
+              f" (valid/F1Score {saver.best_model_score:.4f})", flush=True)
+        if len(best) != 1 or sorted(kept) != sorted(best + ["last.ckpt"]):
+            fail(f"shapes recipe: expected one epoch=*-step=*.ckpt and last.ckpt, got {kept}")
+        saved = torch.load(saver.best_model_path, map_location="cpu", weights_only=True)
+        logged = saved["metrics"]["valid/Accuracy"]
+
+        test_cfg = shapes_config(os.path.join(tmp, "test"))
+        test_cfg["data"]["TEST"] = test_cfg["data"]["VALID"]
+        test_cfg["resume_path"] = saver.best_model_path
+        LAUNCHES.clear()
+        _, test_logs = run(test_cfg, "test")
+        torch.cuda.synchronize()
+        require_launches("shapes recipe test", launch_counts(), {})
+        tested = test_logs.get("test/Accuracy", float("nan"))
+        print(f"shapes recipe +mode=test from the best checkpoint (epoch {saved['epoch']}): "
+              f"test/Accuracy={tested:.6f} against its logged valid/Accuracy={logged:.6f} "
+              f"(tol 1e-3)", flush=True)
+        if not abs(tested - logged) <= 1e-3:
+            fail(f"shapes recipe: +mode=test gives {tested:.6f}, the checkpoint's epoch logged "
+                 f"{logged:.6f}")
+    print(f"shapes recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+RESUME_EPOCHS = 3
+
+
+def run_resume_phase(records):
+    """Resume on a kernel path: swinv2_tiny's smoke train config (one batch
+    repeated, bs 128, bf16) with ModelCheckpoint(save_last), three one-step
+    epochs run twice uninterrupted, and once as two epochs and a resume from
+    ``last.ckpt`` for the third. Every run launches exactly its K1 and K2
+    count and no plain call; the resumed run's parameters and Adam moments
+    must equal the uninterrupted run's bit for bit where the two
+    uninterrupted runs are bit-equal to each other."""
+    import tempfile
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.callbacks.model_checkpoint import ModelCheckpoint
+    from torchok_tpu_torch.ops import swin_attention as swin
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    def fit(cfg, forwards, steps, dirpath):
+        LAUNCHES.clear()
+        trainer, _ = run(cfg, "train", [ModelCheckpoint(dirpath=dirpath, save_last=True)])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        require_launches(f"resume phase run ({forwards} forwards, {steps} steps)", counts,
+                         {swin.KERNEL: 12 * forwards, swin.KERNEL_BWD: 12 * steps})
+        for kernel, count in counts.items():
+            records[kernel]["launches"] += count
+        moments = trainer.state.optimizers[0].state_dict()["state"]
+        out = {f"param {k}": v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+        for index, state in moments.items():
+            out[f"exp_avg {index}"] = state["exp_avg"].cpu()
+            out[f"exp_avg_sq {index}"] = state["exp_avg_sq"].cpu()
+        return trainer, out
+
+    start = time.perf_counter()
+    cfg = smoke_train_config(RESUME_EPOCHS)
+    first = copy.deepcopy(cfg)
+    first["trainer"]["max_epochs"] = RESUME_EPOCHS - 1
+    with tempfile.TemporaryDirectory(prefix="resume_") as tmp:
+        # validation runs once, after the third epoch; one sanity batch first
+        _, whole = fit(cfg, RESUME_EPOCHS + 2, RESUME_EPOCHS, os.path.join(tmp, "a"))
+        _, again = fit(cfg, RESUME_EPOCHS + 2, RESUME_EPOCHS, os.path.join(tmp, "b"))
+        fit(first, RESUME_EPOCHS, RESUME_EPOCHS - 1, os.path.join(tmp, "c"))
+        cfg["resume_path"] = os.path.join(tmp, "c", "last.ckpt")
+        trainer, resumed = fit(cfg, 3, 1, os.path.join(tmp, "d"))
+    if (trainer.global_step, trainer.current_epoch) != (RESUME_EPOCHS, RESUME_EPOCHS - 1):
+        fail(f"resume phase: the resumed run ended at step {trainer.global_step}, epoch "
+             f"{trainer.current_epoch}")
+    if set(whole) != set(resumed) or set(whole) != set(again):
+        fail("resume phase: the runs hold different parameters or moments")
+    noise = {k: (whole[k] - again[k]).abs().max().item() for k in whole}
+    apart = {k: (whole[k] - resumed[k]).abs().max().item() for k in whole}
+    worst_noise = max(noise, key=noise.get)
+    worst = max(apart, key=apart.get)
+    if not any(noise.values()):
+        print(f"resume phase: the two uninterrupted runs are bit-equal, and the resumed run "
+              f"{'is' if not any(apart.values()) else 'is NOT'} bit-equal to them "
+              f"({len(whole)} parameters and moments; largest difference {apart[worst]:.3e} "
+              f"at {worst})", flush=True)
+        if any(apart.values()):
+            fail(f"resume phase: the resumed run differs from the uninterrupted one by "
+                 f"{apart[worst]:.3e} at {worst}")
+    else:
+        over = [k for k in whole if apart[k] > noise[k]]
+        print(f"resume phase: the two uninterrupted runs differ (largest {noise[worst_noise]:.3e} "
+              f"at {worst_noise}); the resumed run against them: largest {apart[worst]:.3e} at "
+              f"{worst}; {len(over)} of {len(whole)} tensors beyond the two runs' own "
+              f"difference", flush=True)
+        if over:
+            fail(f"resume phase: {len(over)} tensors of the resumed run lie further from the "
+                 f"uninterrupted run than the two uninterrupted runs from each other, e.g. "
+                 f"{over[:3]}")
+    print(f"resume phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1880,6 +2117,9 @@ def main() -> None:
     run_slice("mobilenetv3_large_100", MNV3_SLICE_CONFIG, {}, records, 224, calibrate_norms)
     print("efficientnet_b0 (test, predict, train) and mobilenetv3_large_100 (test): 0 launches "
           "of every hand-written kernel", flush=True)
+
+    run_shapes_recipe()
+    run_resume_phase(records)
 
     print(json.dumps({"kernels": list(all_records)}), flush=True)
     print(card, flush=True)

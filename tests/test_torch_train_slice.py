@@ -312,10 +312,19 @@ def test_max_steps_and_limits():
     ("steps_per_execution", 2), ("overfit_batches", 2), ("val_check_interval", 0.5),
     ("max_time", "00:00:01:00"), ("reload_dataloaders_every_n_epochs", 1),
     ("enable_checkpointing", True), ("detect_anomaly", True)])
-def test_fit_only_keys_raise_in_fit_and_not_in_test(key, value):
+def test_fit_only_keys_raise_in_fit_and_not_in_test(key, value, tmp_path, monkeypatch):
     cfg = small_config({"name": "SGD", "params": {"lr": 0.1}}, **{key: value})
-    with pytest.raises(NotImplementedError, match=f"trainer.{key}"):
+    if key == "steps_per_execution":  # ported: super-batches of 2 x 4 with drop_last
+        trainer, _ = run(cfg, "train")
+        assert trainer.global_step == trainer.state.step == 4  # 20 samples: 2 executions
+    elif key == "enable_checkpointing":  # ported: the default ModelCheckpoint
+        monkeypatch.chdir(tmp_path)  # with no logger: ./checkpoints/checkpoints, as the reference
         run(cfg, "train")
+        assert sorted(p.name for p in (tmp_path / "checkpoints" / "checkpoints").iterdir()) \
+            == ["epoch=0-step=5.ckpt"]
+    else:
+        with pytest.raises(NotImplementedError, match=f"trainer.{key}"):
+            run(cfg, "train")
     cfg["data"]["TEST"] = cfg["data"]["VALID"]
     assert "test/Accuracy" in run(cfg, "test")[1]
 
@@ -323,8 +332,9 @@ def test_fit_only_keys_raise_in_fit_and_not_in_test(key, value):
 def test_unported_sections_raise():
     base = small_config({"name": "SGD", "params": {"lr": 0.1}})
     for patch, match in (
-            ({"logger": {"name": "TensorBoardLogger", "log_dir": "/tmp/x"}}, "logger"),
-            ({"callbacks": [{"name": "ModelCheckpoint"}]}, "ModelCheckpoint"),
+            ({"logger": {"name": "WandbLogger", "log_dir": "/tmp/x"}}, "WandbLogger"),
+            ({"callbacks": [{"name": "StochasticWeightAveraging"}]},
+             "StochasticWeightAveraging"),
             ({"optimization": base["optimization"] * 2}, "2 optimization groups"),
             ({"optimization": [{"optimizer": {"name": "Lamb", "params": {"lr": 0.1}}}]},
              "Lamb is not ported")):
@@ -342,13 +352,19 @@ def test_unported_sections_raise():
 
 
 def test_resuming_optimizer_state_raises(tmp_path):
-    cfg = small_config({"name": "SGD", "params": {"lr": 0.1}})
-    trainer, _ = run(cfg, "train")
-    ckpt = tmp_path / "full.pt"
-    torch.save({"state_dict": trainer.state.model.state_dict(), "optimizer": {}}, ckpt)
-    cfg["resume_path"] = str(ckpt)
-    with pytest.raises(NotImplementedError, match="optimizer state"):
-        run(cfg, "train")
+    """Resuming optimizer state is ported: a ModelCheckpoint file restores
+    the momentum buffers, the epoch and the step counts."""
+    from torchok_tpu_torch.callbacks.model_checkpoint import ModelCheckpoint
+    cfg = small_config({"name": "SGD", "params": {"lr": 0.1, "momentum": 0.9}})
+    trainer, _ = run(cfg, "train", [ModelCheckpoint(dirpath=str(tmp_path), save_last=True)])
+    cfg["resume_path"] = str(tmp_path / "last.ckpt")
+    resumed, _ = run(cfg, "train")  # max_epochs 1: nothing is left to train
+    assert (resumed.current_epoch, resumed.global_step, resumed.state.step) == (1, 5, 5)
+    saved = trainer.state.optimizers[0].state_dict()["state"]
+    got = resumed.state.optimizers[0].state_dict()["state"]
+    assert sorted(got) == sorted(saved) and len(got) > 10
+    for key in saved:
+        assert torch.equal(got[key]["momentum_buffer"], saved[key]["momentum_buffer"])
 
 
 def test_clip_by_value_and_on_exception_hook():

@@ -15,6 +15,7 @@ from torchok_tpu_torch import optim  # noqa: F401
 from torchok_tpu_torch import models  # noqa: F401
 from torchok_tpu_torch import data  # noqa: F401
 from torchok_tpu_torch import tasks  # noqa: F401
+from torchok_tpu_torch import callbacks  # noqa: F401
 from torchok_tpu_torch.constructor import (  # noqa: F401
     BACKBONES, DATASETS, HEADS, LOSSES, METRICS, OPTIMIZERS, POOLINGS, SCHEDULERS, TASKS,
     TRANSFORMS,

@@ -7,6 +7,7 @@ from torchok_tpu_torch.data.transforms.base import (  # noqa: F401
     BaseTransform, Compose, NoOp, Sequential,
 )
 import torchok_tpu_torch.data.transforms.pixelwise  # noqa: F401
+import torchok_tpu_torch.data.transforms.spatial  # noqa: F401
 
 
 class DeviceTransformPipeline:

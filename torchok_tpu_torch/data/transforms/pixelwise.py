@@ -1,6 +1,6 @@
-"""Pixel-level transforms (port of the Normalize and ToTensorV2 part of
-``torchok_tpu.data.transforms.pixelwise``): numpy on the host, batched torch
-on the trainer's device."""
+"""Pixel-level transforms (port of the Normalize, ToTensorV2 and
+HorizontalFlip part of ``torchok_tpu.data.transforms.pixelwise``): numpy on
+the host, batched torch on the trainer's device."""
 from __future__ import annotations
 
 import numpy as np
@@ -71,4 +71,29 @@ class ToTensorV2(BaseTransform):
         out = {**batch, "image": img.permute(0, 3, 1, 2)}
         if self.transpose_mask and out.get("mask") is not None and out["mask"].ndim == 4:
             out["mask"] = out["mask"].permute(0, 3, 1, 2)
+        return out
+
+
+@TRANSFORMS.register_class
+class HorizontalFlip(BaseTransform):
+    """Mirror left to right with probability ``p``: on the host per sample,
+    on the device per sample of the batch from the trainer's generator."""
+
+    device_capable = True
+
+    def apply(self, image, **params):
+        return np.ascontiguousarray(image[:, ::-1])
+
+    def apply_to_mask(self, mask, **params):
+        return np.ascontiguousarray(mask[:, ::-1])
+
+    def apply_batch(self, batch, generator):
+        img = batch["image"]
+        n = img.shape[0]
+        device = generator.device if generator is not None else img.device
+        flip = (torch.rand((n,), generator=generator, device=device) < self.p).to(img.device)
+        out = {**batch, "image": torch.where(flip.view(n, 1, 1, 1), img.flip(2), img)}
+        mask = batch.get("mask")
+        if mask is not None:
+            out["mask"] = torch.where(flip.view((n,) + (1,) * (mask.ndim - 1)), mask.flip(2), mask)
         return out

@@ -7,9 +7,14 @@ reference: torchok/constructor/runner.py + Lightning internals).
   back to the CPU quietly.
 * Model weights are drawn from a ``torch.Generator`` seeded from
   ``seed_params.seed``, or loaded from ``ckpt_path`` (a ``torch.save`` of a
-  ``state_dict``, optionally under a ``"state_dict"`` key). Every dropout
-  and drop-path draw comes from one device generator seeded ``seed + 7``;
-  nothing reads torch's global generator.
+  ``state_dict``, optionally under a ``"state_dict"`` key). A ModelCheckpoint
+  file (it holds an ``epoch``) resumes a fit where it stopped: optimizers,
+  schedulers, generators, epoch and step counts. Every dropout and
+  drop-path draw comes from one device generator seeded ``seed + 7``, every
+  random device transform of the train set from one seeded ``seed + 17``;
+  nothing reads torch's global generator. Host-side random transforms draw
+  from unseeded per-thread numpy generators that no checkpoint holds, so
+  only a fit whose random transforms all run on the device resumes exactly.
 * Input pipeline: loader threads fetch and collate numpy batches; the batch
   is copied to the device and the dataset's device transform suffix runs
   there, batched.
@@ -23,6 +28,16 @@ reference: torchok/constructor/runner.py + Lightning internals).
   interval and once per epoch, so no step waits for the host.
 * Host-side schedulers: the engine asks the scheduler for the lr (per epoch
   or per step) and writes ``base_lr * factor`` into every param group.
+* ``steps_per_execution: K`` (``torchok_tpu``'s fused multi-step): the TRAIN
+  loader serves super-batches of K micro-batches (``drop_last`` applies to
+  the super-batch), one host fetch, copy and device-transform run each; the
+  engine runs their K steps in a row (a ragged tail: its full micro-batches,
+  then one step on the rest). Train limits count optimizer steps,
+  step-interval schedulers fire between executions, and each execution
+  contributes the mean of its steps' losses.
+* A logger (``logger:``) gets the hyperparameters at fit start, the train
+  losses every ``log_every_n_steps``, the epoch logs, the test logs and the
+  final status.
 """
 from __future__ import annotations
 
@@ -46,16 +61,16 @@ _HONOURED = frozenset({
     "max_epochs", "min_epochs", "max_steps", "min_steps", "limit_train_batches",
     "limit_val_batches", "check_val_every_n_epoch", "num_sanity_val_steps",
     "log_every_n_steps", "accumulate_grad_batches", "gradient_clip_val",
-    "gradient_clip_algorithm",
+    "gradient_clip_algorithm", "steps_per_execution",
+    # read by create_trainer
+    "enable_checkpointing", "enable_model_summary", "barebones",
 })
 # fit-loop keys that are not ported: a recipe that sets them still runs in
 # test/predict mode (they change nothing there) and raises in fit
 _FIT_RAISES = frozenset({
-    "steps_per_execution", "overfit_batches", "val_check_interval", "max_time",
-    "reload_dataloaders_every_n_epochs", "enable_checkpointing", "detect_anomaly",
+    "overfit_batches", "val_check_interval", "max_time",
+    "reload_dataloaders_every_n_epochs", "detect_anomaly",
 })
-# checkpoint entries beside "state_dict" that a fit cannot resume from yet
-_OPTIMIZER_STATE_KEYS = frozenset({"optimizer", "optimizers", "optimizer_states", "opt_state"})
 # keys that change nothing on one device with one TRAIN loader
 _INERT = frozenset({"multiple_trainloader_mode", "sync_batchnorm", "use_distributed_sampler"})
 
@@ -105,11 +120,12 @@ def resolve_device(accelerator: Optional[str]) -> torch.device:
 
 
 class Trainer:
-    def __init__(self, trainer_params: ConfigNode,
+    def __init__(self, trainer_params: ConfigNode, logger_backend=None,
                  callbacks: Optional[List[Callback]] = None, seed: int = 0):
         tp = trainer_params
         _check_ported(tp)
         self.params = tp
+        self.logger = logger_backend
         self.callbacks = callbacks or []
         self.seed = seed
 
@@ -124,6 +140,7 @@ class Trainer:
         self.check_val_every_n_epoch = tp.get("check_val_every_n_epoch") or 1
         self.log_every_n_steps = tp.get("log_every_n_steps") or 50
         self.accumulate_grad_batches = tp.get("accumulate_grad_batches") or 1
+        self.steps_per_execution = max(1, tp.get("steps_per_execution") or 1)
         self.gradient_clip_val = tp.get("gradient_clip_val")
         self.gradient_clip_algorithm = tp.get("gradient_clip_algorithm") or "norm"
         if self.gradient_clip_algorithm not in ("norm", "value"):
@@ -162,8 +179,11 @@ class Trainer:
     def _make_device_fn(self, dataset, train: bool) -> Callable:
         pipe = dataset.device_pipeline
         device = self.device
-        generator = torch.Generator(device=device)
-        generator.manual_seed(self.seed + (17 if train else 31))
+        if train:  # a checkpoint carries its state
+            generator = self.state.transform_generator
+        else:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(self.seed + 31)
 
         def device_fn(host_batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             batch = {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()
@@ -264,15 +284,15 @@ class Trainer:
     # setup
     # ------------------------------------------------------------------
     def _setup_state(self, task, ckpt_path: Optional[str] = None, fit: bool = False) -> None:
+        from torchok_tpu_torch.callbacks.model_checkpoint import (restore_train_state,
+                                                                  wait_for_pending_saves)
         generator = torch.Generator()
         generator.manual_seed(self.seed)
         task.init_weights(generator)
+        ckpt = None
         if ckpt_path:
+            wait_for_pending_saves()  # a background write may still be in flight
             ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-            if fit and "state_dict" in ckpt and set(ckpt) & _OPTIMIZER_STATE_KEYS:
-                raise NotImplementedError(
-                    f"resuming optimizer state ({sorted(set(ckpt) & _OPTIMIZER_STATE_KEYS)}) "
-                    "is not ported yet; save only the state_dict to start from its weights")
             task.model.load_state_dict(ckpt.get("state_dict", ckpt), strict=True)
         model = task.model.to(self.device).eval()
         self.state = TrainState(model=model)
@@ -282,6 +302,8 @@ class Trainer:
         dropout_generator.manual_seed(self.seed + 7)
         install_dropout_generator(model, dropout_generator)
         self.state.dropout_generator = dropout_generator
+        self.state.transform_generator = torch.Generator(device=self.device)
+        self.state.transform_generator.manual_seed(self.seed + 17)
         optimization = task.hparams.get("optimization") or []
         if len(optimization) > 1:
             raise NotImplementedError(
@@ -290,6 +312,8 @@ class Trainer:
             model.named_parameters(), task.no_weight_decay(),
             norm_names=norm_parameter_names(model)) if optimization else []
         self.state.optimizers = [b.optimizer for b in self.bundles]
+        if ckpt is not None and "epoch" in ckpt:  # a ModelCheckpoint file: resume
+            restore_train_state(ckpt, self)
 
     # ------------------------------------------------------------------
     # loops
@@ -317,19 +341,60 @@ class Trainer:
         self._setup_state(task, ckpt_path, fit=True)
         self._install_device_fns(val_loaders, train=False)
         self._install_device_fns(train_loaders, train=True)
-        self._fit_loop(task, train_loaders[0], val_loaders, self._make_train_step(task))
+        train_loader = train_loaders[0]
+        micro_batch = train_loader.batch_size
+        # the loader serves super-batches of K micro-batches; restored after
+        # the fit so that a second fit does not compound the scaling
+        train_loader.batch_size = micro_batch * self.steps_per_execution
+        try:
+            self._fit_loop(task, train_loader, val_loaders, self._make_train_step(task),
+                           micro_batch)
+        finally:
+            train_loader.batch_size = micro_batch
 
-    def _fit_loop(self, task, train_loader, val_loaders, train_step) -> None:
+    def _execute(self, task, train_step, batch: Dict[str, torch.Tensor], micro_batch: int
+                 ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """One execution: the steps of a (super-)batch and the mean of their
+        losses, as ``torchok_tpu``'s fused scan averages them (a ragged tail's
+        remainder step weighs in as one more step). Returns the losses and
+        the count of optimizer steps run."""
+        if self.steps_per_execution == 1:
+            outputs, losses = train_step(batch)
+            task.metrics_manager.update(Phase.TRAIN, 0, **outputs)
+            return losses, 1
+        size = batch["image"].shape[0]
+        k, rem = divmod(size, micro_batch)
+        bounds = [(i * micro_batch, (i + 1) * micro_batch) for i in range(k)]
+        if rem:
+            bounds.append((k * micro_batch, size))
+        per_step = []
+        for lo, hi in bounds:
+            outputs, losses = train_step({key: v[lo:hi] for key, v in batch.items()})
+            task.metrics_manager.update(Phase.TRAIN, 0, **outputs)
+            per_step.append(losses)
+        if not k:
+            return per_step[0], 1
+        mean = {key: torch.stack([s[key] for s in per_step[:k]]).mean(0) for key in per_step[0]}
+        if rem:
+            mean = {key: (v * k + per_step[k][key]) / (k + 1) for key, v in mean.items()}
+        return mean, len(bounds)
+
+    def _fit_loop(self, task, train_loader, val_loaders, train_step, micro_batch: int) -> None:
         eval_step = self._make_eval_step(task, task.compute_loss_on_valid)
         model = self.state.model
-        micro_batch = train_loader.batch_size
+        spe = self.steps_per_execution
 
         for cb in self.callbacks:
             cb.setup(self, task)
         for cb in self.callbacks:
             cb.on_fit_start(self, task)
+        if self.logger is not None:
+            self.logger.log_hyperparams(task.hparams)
 
-        n_train = self._limit(len(train_loader), self.limit_train_batches)
+        n_train = self._limit(len(train_loader), self.limit_train_batches)  # executions
+        if spe > 1 and self.limit_train_batches is not None:  # the limit counts steps
+            limit_steps = self._limit(len(train_loader) * spe, self.limit_train_batches)
+            n_train = min(len(train_loader), max(1, (limit_steps + spe - 1) // spe))
         hard_stop = False  # max_steps overrides min_epochs|steps
         self.last_fit = {"steps": 0, "images": 0, "seconds": 0.0}
 
@@ -353,28 +418,37 @@ class Trainer:
             # every step wait for the host
             loss_sums: Dict[str, torch.Tensor] = {}
             n_steps = 0
+            n_execs = 0
             for bidx, batch in enumerate(train_loader):
                 if bidx >= n_train:
                     break
-                outputs, losses = train_step(batch)
-                task.metrics_manager.update(Phase.TRAIN, 0, **outputs)
+                losses, executed = self._execute(task, train_step, batch, micro_batch)
                 prev_step = self.global_step
-                n_steps += 1
-                self.global_step += 1
+                n_steps += executed
+                n_execs += 1
+                self.global_step += executed
                 for k, v in losses.items():
                     loss_sums[k] = v if k not in loss_sums else loss_sums[k] + v
-                # step-interval schedulers advance once per train step
+                # step-interval schedulers advance once per optimizer step; with
+                # steps_per_execution the lr moves between executions
                 for b_idx, bundle in enumerate(self.bundles):
                     if bundle.scheduler is None or bundle.scheduler_interval != "step":
                         continue
-                    if self.global_step // bundle.scheduler_frequency \
-                            > prev_step // bundle.scheduler_frequency:
+                    fired = (self.global_step // bundle.scheduler_frequency
+                             - prev_step // bundle.scheduler_frequency)
+                    if fired <= 0:
+                        continue
+                    for _ in range(fired):
                         new_lr = bundle.scheduler.step()
-                        self._apply_lr_factor(new_lr / bundle.scheduler.base_lr
-                                              if bundle.scheduler.base_lr else 1.0, b_idx)
+                    self._apply_lr_factor(new_lr / bundle.scheduler.base_lr
+                                          if bundle.scheduler.base_lr else 1.0, b_idx)
                 if (self.global_step // self.log_every_n_steps
-                        > prev_step // self.log_every_n_steps) and self.callbacks:
+                        > prev_step // self.log_every_n_steps) \
+                        and (self.callbacks or self.logger is not None):
                     host_losses = {k: float(v) for k, v in losses.items()}
+                    if self.logger is not None:
+                        self.logger.log_metrics({f"train/{k}": v for k, v in host_losses.items()},
+                                                step=self.global_step)
                     for cb in self.callbacks:
                         cb.on_train_batch_end(self, task, self.global_step, host_losses)
                 if 0 < self.max_steps <= self.global_step:
@@ -386,7 +460,8 @@ class Trainer:
             self.last_fit["images"] += n_steps * micro_batch
             self.last_fit["seconds"] += epoch_time
 
-            train_logs = {f"train/{k}": v / max(n_steps, 1) for k, v in host_sums.items()}
+            # each execution contributes the mean of its steps' losses
+            train_logs = {f"train/{k}": v / max(n_execs, 1) for k, v in host_sums.items()}
             train_logs.update(task.metrics_manager.on_epoch_end(Phase.TRAIN))
             train_logs["train/epoch_time_s"] = epoch_time
             if n_steps:
@@ -414,6 +489,8 @@ class Trainer:
             epoch_logs["lr"] = self.current_lr()
 
             self.callback_metrics = dict(epoch_logs)
+            if self.logger is not None:
+                self.logger.log_metrics(epoch_logs, step=self.global_step)
             for cb in self.callbacks:
                 cb.on_epoch_end(self, task, epoch_logs)
 
@@ -427,6 +504,8 @@ class Trainer:
 
         for cb in self.callbacks:
             cb.on_fit_end(self, task)
+        if self.logger is not None:
+            self.logger.finalize("success")
 
     def _run_eval(self, task, eval_step, loaders, phase: Phase, limit=None) -> Dict[str, float]:
         if limit is None:
@@ -467,6 +546,9 @@ class Trainer:
         logs = self._run_eval(task, eval_step, loaders, Phase.TEST,
                               limit=self.limit_test_batches)
         self.callback_metrics = dict(logs)
+        if self.logger is not None:
+            self.logger.log_metrics(logs, step=self.global_step)
+            self.logger.finalize("success")
         for cb in self.callbacks:
             cb.on_test_end(self, task, logs)
         return logs

@@ -1,7 +1,11 @@
-"""Image ops on NCHW tensors (port of ``max_pool``, ``avg_pool`` and
-``blur_pool`` of ``torchok_tpu.ops.image``; that module's resize, adaptive
-pooling and coordinate helpers are not ported yet)."""
+"""Image ops (port of ``max_pool``, ``avg_pool``, ``blur_pool``,
+``resize_bilinear`` and ``resize_nearest_cv2`` of ``torchok_tpu.ops.image``;
+that module's adaptive pooling and coordinate helpers are not ported yet).
+The pools take NCHW tensors; the resizes take the data pipeline's NHWC (or
+HWC) images."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -44,3 +48,30 @@ def blur_pool(x: torch.Tensor, stride: int = 2, kernel: int = 3) -> torch.Tensor
     pad = (kernel - 1) // 2
     x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
     return F.conv2d(x, filt, stride=stride, groups=c)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of float NHWC (or HWC) images to ``size=(H, W)`` in the
+    half-pixel convention with 2 taps and no antialiasing, also when
+    shrinking: cv2's INTER_LINEAR and ``F.interpolate(bilinear)``."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                        align_corners=False, antialias=False)
+    out = out.permute(0, 2, 3, 1).contiguous()
+    return out[0] if squeeze else out
+
+
+def nearest_cv2_indices(src: int, dst: int) -> np.ndarray:
+    """cv2 INTER_NEAREST's source index of each output pixel:
+    ``floor(dst_index * src / dst)``, top-left anchored."""
+    return np.minimum(np.floor(np.arange(dst) * (src / dst)), src - 1).astype(np.int64)
+
+
+def resize_nearest_cv2(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """cv2.resize INTER_NEAREST of NHWC (or HWC) images, any dtype."""
+    axis_h = x.ndim - 3
+    iy = torch.from_numpy(nearest_cv2_indices(x.shape[axis_h], size[0])).to(x.device)
+    ix = torch.from_numpy(nearest_cv2_indices(x.shape[axis_h + 1], size[1])).to(x.device)
+    return x.index_select(axis_h, iy).index_select(axis_h + 1, ix)

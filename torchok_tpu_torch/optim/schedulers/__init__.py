@@ -97,11 +97,13 @@ class BaseLRScheduler:
         return [self.current_lr]
 
     def state_dict(self) -> dict:
-        return {"last_epoch": self.last_epoch, "base_lr": self.base_lr}
+        """Every attribute but the callables (a parsed ``lr_lambda``), so a
+        resumed policy carries on where it stopped (ReduceLROnPlateau's best
+        value, bad epochs and lr too)."""
+        return {k: v for k, v in vars(self).items() if not callable(v)}
 
     def load_state_dict(self, state: dict) -> None:
-        self.last_epoch = state["last_epoch"]
-        self.base_lr = state["base_lr"]
+        self.__dict__.update(state)
 
 
 @SCHEDULERS.register_class(name="LambdaLR")
