@@ -121,7 +121,24 @@
      exact K1 and K2 counts in each run, and the resumed run's parameters
      and Adam moments bit-equal to the uninterrupted run's where the two
      uninterrupted runs are bit-equal (else no further from it than they
-     are from each other, tensor by tensor).
+     are from each other, tensor by tensor);
+   * the kNN index of the retrieval meters (``ops/knn.py``, no hand-written
+     kernel: products and top-k in PyTorch, as the JAX package leaves them
+     to XLA): ``FlatIndex`` on the card against f64 numpy on the host at
+     the arcface recipe's 2000 x 128 (identical indexes, scores within
+     1e-4, one gallery block and chunks merged on the card), duplicated
+     vectors tied to the lower index, and ``IvfIndex`` on a 200k x 128
+     clustered gallery with recall@1 >= 0.9 against the exact index; the
+     search times;
+   * the retrieval north star ``configs/representation_arcface_shapes.yaml``
+     (``ARCFACE_RECIPE``) at its short budget (8 epochs, 8000 images;
+     resnet18 + PoolingLinear + ArcFaceHead at 32x32, f32,
+     ``steps_per_execution`` 16, 4 loader threads, CSVLogger,
+     FinalizeLogger): valid/recall_at_1 >= 0.7255 - 0.05 at step 384,
+     valid/recall_at_5 within the range RecallAtKMeter's semantics allow
+     and within 1e-9 of a numpy count over the last epoch's embeddings,
+     the meters' CSV columns, all 64 kNN searches on ``cuda``; 0
+     hand-written launches.
 6. Prints ``{"kernels": [...]}`` (K1 to K9; K1/K2's times are summed over
    one swinv2_tiny_window8 forward or backward, as before the other windows ran, the K3 to K5 times
    over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
@@ -261,6 +278,70 @@ SHAPES_RECIPE = {
                   {"name": "FinalizeLogger"}],
     "metrics": [{"name": "Accuracy", **_SHAPES_METRIC}, {"name": "F1Score", **_SHAPES_METRIC}],
 }
+_ARCFACE_TRANSFORM = [{"name": "Resize", "params": {"height": 32, "width": 32}},
+                      {"name": "Normalize"}, {"name": "ToTensorV2"}]
+_ARCFACE_METER = {"params": {"dataset_type": "classification", "normalize_vectors": True},
+                  "mapping": {"vectors": "embeddings", "group_labels": "target"},
+                  "phases": ["VALID"]}
+
+
+def _arcface_data(train, num_samples):
+    data = {"dataloader": {"batch_size": 128, "num_workers": 4, "drop_last": train,
+                           "shuffle": train},
+            "dataset": {"name": "SyntheticShapesDataset",
+                        "params": {"hardness": 0.4, "input_dtype": "float32", "train": train,
+                                   "num_samples": num_samples},
+                        "transform": copy.deepcopy(_ARCFACE_TRANSFORM)}}
+    if train:
+        data["dataset"]["augment"] = [{"name": "HorizontalFlip"}]
+    return [data]
+
+
+def _arcface_meter(name, tag, k):
+    meter = copy.deepcopy(_ARCFACE_METER)
+    meter["params"] = {"k": k, **meter["params"]}
+    return {"name": name, "tag": tag, **meter}
+
+
+# configs/representation_arcface_shapes.yaml, the retrieval north star (a CPU
+# test holds the two equal)
+ARCFACE_RECIPE = {
+    "task": {"name": "ClassificationTask", "compute_loss_on_valid": False,
+             "params": {"backbone_name": "resnet18",
+                        "backbone_params": {"pretrained": False, "in_channels": 3},
+                        "pooling_name": "PoolingLinear", "pooling_params": {"out_channels": 128},
+                        "head_name": "ArcFaceHead", "head_params": {"num_classes": 10},
+                        "inputs": [{"shape": [3, 32, 32], "dtype": "float32"}]}},
+    "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
+                               "mapping": {"input": "prediction", "target": "target"}}]},
+    "optimization": [{"optimizer": {"name": "SGD",
+                                    "params": {"lr": 0.01, "momentum": 0.9, "nesterov": True,
+                                               "weight_decay": 0.00005}},
+                      "scheduler": {"name": "CosineAnnealingLR", "params": {"T_max": 30}}}],
+    "data": {"TRAIN": _arcface_data(True, 20000), "VALID": _arcface_data(False, 2000)},
+    "trainer": {"accelerator": "auto", "max_epochs": 30, "precision": 32,
+                "num_sanity_val_steps": 0, "steps_per_execution": 16},
+    "seed_params": {"seed": 42},
+    "logger": {"log_dir": "${oc.env:HOME}/.cache/torchok_tpu/shapes_arcface/logs",
+               "experiment_name": "resnet18_arcface",
+               "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}", "name": "CSVLogger"},
+    "callbacks": [{"name": "FinalizeLogger"}],
+    "metrics": [_arcface_meter("HitAtKMeter", "recall_at_1", 1),
+                _arcface_meter("RecallAtKMeter", "recall_at_5", 5),
+                {"name": "Accuracy", "params": {"task": "multiclass", "num_classes": 10},
+                 "mapping": {"preds": "prediction", "target": "target"}, "phases": ["TRAIN"]}],
+}
+# the short budget of tools/north_star_baselines.json ("arcface"), held
+# one-sided to valid/recall_at_1 >= 0.7255 - 0.05 as tools/check_north_stars.py does
+ARCFACE_OVERRIDES = ["trainer.max_epochs=8", "data.TRAIN.0.dataset.params.num_samples=8000"]
+ARCFACE_REFERENCE = 0.7255
+ARCFACE_TOLERANCE = 0.05
+# drop_last takes the super-batch of 16 x 128: 8000 // 2048 = 3 executions an
+# epoch (torchok_tpu's fit serves K x B super-batches, engine/trainer.py:694)
+ARCFACE_STEPS = 8 * 3 * 16
+ARCFACE_CSV_HEADER = ["step", "train/loss", "train/Accuracy", "train/epoch_time_s",
+                      "train/images_per_sec", "valid/recall_at_1", "valid/recall_at_5", "lr"]
+
 # the short budget of tools/north_star_baselines.json ("classification"), held
 # one-sided to valid/Accuracy >= 0.7573 - 0.03 as tools/check_north_stars.py does
 SHAPES_OVERRIDES = ["trainer.max_epochs=6", "data.TRAIN.0.dataset.params.num_samples=8000"]
@@ -287,6 +368,18 @@ def shapes_config(log_dir: str) -> dict:
         apply_override(cfg, key, value)
     cfg["logger"]["log_dir"] = log_dir
     return cfg
+
+def arcface_config(log_dir: str) -> dict:
+    """The arcface recipe with the short budget's overrides, logging under
+    ``log_dir``."""
+    from torchok_tpu_torch.constructor.config import apply_override
+    cfg = copy.deepcopy(ARCFACE_RECIPE)
+    for override in ARCFACE_OVERRIDES:
+        key, _, value = override.partition("=")
+        apply_override(cfg, key, value)
+    cfg["logger"]["log_dir"] = log_dir
+    return cfg
+
 
 TRAIN_STEPS = 10
 BATCHES = 3
@@ -1916,6 +2009,254 @@ def run_shapes_recipe():
     print(f"shapes recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
 
 
+def recall_bounds(targets, k):
+    """(lower factor, upper bound) of the recipe's RecallAtKMeter on a
+    gallery with these class labels: a query of a class of n finds at most
+    min(k, n - 1) of its n - 1 relevant items, and at least one where its
+    first neighbour is relevant, so recall@k >= hit@1 x the lower factor."""
+    import numpy as np
+    sizes = np.bincount(targets)[targets] - 1
+    upper = float(np.mean(np.minimum(k, sizes) / sizes))
+    return 1.0 / sizes.max(), upper
+
+
+def witness_recall(state, k, batch=512):
+    """RecallAtKMeter's value recomputed from the state its last ``compute``
+    was given: the epoch's embeddings normalised by row, ``FlatIndex`` on
+    their device in the meter's query batches, k + 1 neighbours with the
+    first (the query itself) dropped, and found / relevant counted in numpy
+    (relevant: the query's class less the query)."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.ops import knn
+
+    vectors = torch.cat(state["vectors"]).float()
+    unit = vectors / torch.clamp_min(torch.linalg.vector_norm(vectors, dim=1, keepdim=True),
+                                     1e-12)
+    labels = np.concatenate([np.asarray(t.cpu()) if torch.is_tensor(t) else np.asarray(t)
+                             for t in state["group_labels"]])
+    index = knn.FlatIndex(unit, "IP")
+    found = []
+    for start in range(0, len(unit), batch):
+        rows = np.arange(start, min(start + batch, len(unit)))
+        _, idxs = index.search(unit[start:start + len(rows)], k + 1)
+        neighbours = idxs[:, 1:]
+        relevant = (labels[neighbours] == labels[rows][:, None]) & (neighbours != rows[:, None])
+        found.append(relevant.sum(1))
+    sizes = np.bincount(labels)[labels] - 1
+    return float(np.mean(np.concatenate(found) / sizes))
+
+
+def run_arcface_recipe():
+    """``configs/representation_arcface_shapes.yaml`` at its short budget
+    through ``run(..., "train")`` as a user runs it (resnet18 at 32x32,
+    PoolingLinear to 128, ArcFaceHead, f32, ``steps_per_execution`` 16, 4
+    loader workers, CSVLogger, FinalizeLogger): the reference's recall@1,
+    recall@5 within the range its semantics allow and equal to its numpy
+    witness (``witness_recall``), the step count, the CSV
+    columns of the meters' tags, every kNN search on the card and none on the
+    host. ResNet-18 reaches no hand-written kernel (nor does the JAX one a
+    Pallas kernel), and ``ops/knn.py`` has none to reach."""
+    import csv
+    import math as math_
+    import tempfile
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor import DATASETS, METRICS
+    from torchok_tpu_torch.ops import knn
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    start = time.perf_counter()
+    # the state of RecallAtKMeter's last compute, the last epoch's
+    recall_meter = METRICS.get("RecallAtKMeter")
+    compute, kept = recall_meter.compute, {}
+
+    def keep_state(meter, state):
+        kept["state"] = state
+        return compute(meter, state)
+
+    with tempfile.TemporaryDirectory(prefix="arcface_") as tmp:
+        LAUNCHES.clear()
+        knn.SEARCHES.clear()
+        recall_meter.compute = keep_state
+        try:
+            trainer, logs = run(arcface_config(os.path.join(tmp, "train")), "train")
+        finally:
+            del recall_meter.compute
+        torch.cuda.synchronize()
+        require_launches("arcface recipe train", launch_counts(), {})
+        searches = dict(knn.SEARCHES)
+        stats = trainer.last_fit
+        recall1 = logs.get("valid/recall_at_1", float("nan"))
+        recall5 = logs.get("valid/recall_at_5", float("nan"))
+        floor = ARCFACE_REFERENCE - ARCFACE_TOLERANCE
+        valid = ARCFACE_RECIPE["data"]["VALID"][0]["dataset"]["params"]
+        targets = DATASETS.get("SyntheticShapesDataset")(None, **valid).targets
+        per_hit, upper = recall_bounds(targets, 5)
+        lower = recall1 * per_hit
+        print(f"arcface recipe (resnet18 + PoolingLinear 128 + ArcFaceHead, short budget): "
+              f"valid/recall_at_1={recall1:.4f} at global_step {trainer.global_step} (the "
+              f"reference's short budget 0.7255, floor {floor:.4f}); valid/recall_at_5="
+              f"{recall5:.6f} (RecallAtKMeter: found / relevant, so within [{lower:.6f}, "
+              f"{upper:.6f}] for these 2000 labels); kNN searches per device {searches}; "
+              f"smoke train img/s {stats['images'] / stats['seconds']:.2f} (a smoke reading: "
+              f"host clock, first fetch to each epoch's loss read-back, {stats['steps']} steps, "
+              f"{stats['images']} images in {stats['seconds']:.3f} s, bs128 x 16 per execution, "
+              f"f32) on {card_line()}", flush=True)
+        if not recall1 >= floor:
+            fail(f"arcface recipe: valid/recall_at_1 {recall1:.4f} below {floor:.4f}")
+        if not (math_.isfinite(recall5) and lower <= recall5 <= upper):
+            fail(f"arcface recipe: valid/recall_at_5 {recall5} outside [{lower}, {upper}]")
+        if trainer.global_step != ARCFACE_STEPS or stats["steps"] != ARCFACE_STEPS:
+            fail(f"arcface recipe: {trainer.global_step} steps ({stats['steps']} run), "
+                 f"expected {ARCFACE_STEPS}")
+        # two meters, one search batch of 512 queries at a time, per epoch
+        want_searches = {"cuda": 2 * 4 * 8}
+        if searches != want_searches:
+            fail(f"arcface recipe: kNN searches per device {searches}, expected {want_searches}")
+        witness = witness_recall(kept["state"], 5)
+        print(f"arcface recipe: valid/recall_at_5 recomputed in numpy from the last epoch's "
+              f"{len(targets)} embeddings (FlatIndex on the card, k 6, the query's own row "
+              f"dropped) {witness:.12f} against the meter's {recall5:.12f} (tol 1e-9)",
+              flush=True)
+        if not abs(witness - recall5) <= 1e-9:
+            fail(f"arcface recipe: valid/recall_at_5 {recall5} differs from its numpy "
+                 f"witness {witness}")
+        with open(os.path.join(trainer.logger.log_dir, "metrics.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        epochs = [r for r in rows if r["valid/recall_at_1"]]
+        print(f"arcface recipe metrics.csv: columns {list(rows[0])}; valid/recall_at_1 by epoch "
+              f"{[round(float(r['valid/recall_at_1']), 4) for r in epochs]}", flush=True)
+        if list(rows[0]) != ARCFACE_CSV_HEADER or len(epochs) != 8 or \
+                any(not r["valid/recall_at_5"] for r in epochs):
+            fail(f"arcface recipe: metrics.csv columns {list(rows[0])} with {len(epochs)} epoch "
+                 f"rows, expected {ARCFACE_CSV_HEADER} with 8")
+        with open(os.path.join(trainer.logger.log_dir, "status.txt")) as f:
+            status = f.read()
+        if status != "success":
+            fail(f"arcface recipe: status.txt reads {status!r}")
+    print(f"arcface recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def timed_search(index, queries, k, repeats=5):
+    """Median wall milliseconds of ``index.search`` (which returns host arrays,
+    so each call waits for the card)."""
+    import torch
+    index.search(queries, k)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.search(queries, k)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _clustered(rng, n_clusters, per_cluster, d, spread):
+    import numpy as np
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    pts = np.repeat(centers, per_cluster, axis=0)
+    return (pts + rng.normal(scale=spread, size=pts.shape)).astype(np.float32)
+
+
+KNN_GALLERY = (2000, 128)           # the arcface recipe's valid gallery
+IVF_GALLERY = (1000, 200, 128)      # clusters, rows each, width: 200k rows, 102 MB in f32
+KNN_K = 6                           # RecallAtKMeter's k + 1
+
+
+def check_knn_index():
+    """``ops/knn.py`` on the card: ``FlatIndex`` against the same search in
+    f64 numpy on the host (identical indexes on unit vectors whose f64
+    neighbours are at least 1e-5 apart, scores within 1e-4; duplicated
+    integer vectors, whose products are exact, tie to the lower index), and
+    ``IvfIndex`` on a 200k x 128 clustered gallery against the exact index
+    (recall@1 >= 0.9, as ``tests/test_retrieval_metrics.py`` holds it on the
+    CPU), with the search times."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.ops import knn
+
+    start = time.perf_counter()
+    knn.SEARCHES.clear()
+    device = torch.device("cuda", 0)
+    # seed 19: the f64 neighbours of these queries are at least 2.4e-5 apart
+    rng = np.random.default_rng(19)
+    n, d = KNN_GALLERY
+    gallery = rng.normal(size=(n, d))
+    gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
+    gallery = gallery.astype(np.float32)
+    queries = gallery[:512] + 0.05 * rng.normal(size=(512, d)).astype(np.float32)
+    g64, q64 = gallery.astype(np.float64), queries.astype(np.float64)
+    ip = q64 @ g64.T
+    l2 = (q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :] - 2 * ip
+    for metric, key in (("IP", -ip), ("L2", l2)):
+        order = np.argsort(key, axis=1, kind="stable")[:, :KNN_K]
+        ranked = np.take_along_axis(key, np.argsort(key, axis=1)[:, :KNN_K + 1], 1)
+        gap = float(np.diff(ranked, axis=1).min())
+        want = np.take_along_axis(ip if metric == "IP" else l2, order, 1)
+        for block in (32768, 300):  # one block, and chunks merged on the card
+            index = knn.FlatIndex(torch.as_tensor(gallery, device=device), metric,
+                                  gallery_block=block)
+            scores, idxs = index.search(torch.as_tensor(queries, device=device), KNN_K)
+            err = float(np.abs(scores - want).max())
+            same = bool(np.array_equal(idxs, order))
+            print(f"FlatIndex {metric} on the card (gallery {n}x{d}, 512 queries, k {KNN_K}, "
+                  f"gallery_block {block}) against f64 numpy: indexes identical {same}, max "
+                  f"score error {err:.3e} (tol 1e-4), smallest f64 gap among the first "
+                  f"{KNN_K + 1} {gap:.3e}", flush=True)
+            if gap < 1e-5:
+                fail(f"check_knn_index: the inputs have near-ties ({gap:.3e} apart)")
+            if not same or not err <= 1e-4:
+                fail(f"FlatIndex {metric} differs from f64 numpy: indexes identical {same}, "
+                     f"max score error {err:.3e}")
+    dup = np.repeat(rng.integers(-3, 4, size=(50, 32)), 4, axis=0).astype(np.float32)
+    for metric in ("IP", "L2"):
+        _, idxs = knn.FlatIndex(torch.as_tensor(dup, device=device), metric).search(dup, 8)
+        d64 = dup.astype(np.float64)
+        s64 = d64 @ d64.T
+        key = -s64 if metric == "IP" else (d64 * d64).sum(1)[:, None] + \
+            (d64 * d64).sum(1)[None, :] - 2 * s64
+        want = np.argsort(key, axis=1, kind="stable")[:, :8]
+        print(f"FlatIndex {metric} on the card, 50 integer vectors 4 times each: ties to the "
+              f"lower index {bool(np.array_equal(idxs, want))}", flush=True)
+        if not np.array_equal(idxs, want):
+            fail(f"FlatIndex {metric}: duplicated vectors do not tie to the lower index")
+
+    index = knn.FlatIndex(torch.as_tensor(gallery, device=device), "IP")
+    flat_ms = timed_search(index, torch.as_tensor(gallery, device=device), KNN_K)
+    print(f"FlatIndex IP search of the {n} x {d} gallery by all its rows (k {KNN_K}): "
+          f"{flat_ms:.4f} ms (median of 5, wall clock, results on the host) on {card_line()}",
+          flush=True)
+
+    clusters, per, d = IVF_GALLERY
+    big = torch.as_tensor(_clustered(rng, clusters, per, d, 0.05), device=device)
+    pick = torch.as_tensor(rng.choice(len(big), size=2048, replace=False), device=device)
+    probes = big[pick] + 0.025 * torch.randn((2048, d), device=device,
+                                             generator=torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = knn.IvfIndex(big)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    exact = knn.FlatIndex(big)
+    want = exact.search(probes, 1)[1]
+    got = ivf.search(probes, 1)[1]
+    recall = float(np.mean(got[:, 0] == want[:, 0]))
+    exact_ms = timed_search(exact, probes, 10)
+    ivf_ms = timed_search(ivf, probes, 10)
+    print(f"IvfIndex on the card ({len(big)} x {d} clustered, nlist {ivf.nlist}, nprobe "
+          f"{ivf.nprobe}, cell capacity {ivf.members.shape[1]}): built in {build_s:.3f} s; "
+          f"recall@1 against the exact index {recall:.4f} (floor 0.9) over 2048 queries; "
+          f"search (k 10) {ivf_ms:.4f} ms against the exact index's {exact_ms:.4f} ms (median "
+          f"of 5, wall clock) on {card_line()}", flush=True)
+    if not recall >= 0.9:
+        fail(f"IvfIndex recall@1 {recall:.4f} below 0.9")
+    if dict(knn.SEARCHES).get("cpu"):
+        fail(f"check_knn_index: searches ran on the host: {dict(knn.SEARCHES)}")
+    print(f"kNN index phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 RESUME_EPOCHS = 3
 
 
@@ -2120,6 +2461,8 @@ def main() -> None:
 
     run_shapes_recipe()
     run_resume_phase(records)
+    check_knn_index()
+    run_arcface_recipe()
 
     print(json.dumps({"kernels": list(all_records)}), flush=True)
     print(card, flush=True)

@@ -1,1 +1,1 @@
-from torchok_tpu_torch.data.datasets.examples import synthetic  # noqa: F401
+from torchok_tpu_torch.data.datasets.examples import cifar, synthetic  # noqa: F401

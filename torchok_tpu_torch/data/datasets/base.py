@@ -7,6 +7,13 @@ threads, the suffix (Normalize, ToTensorV2, ...) runs batched on the
 trainer's device after collation. ``__getitem__`` therefore returns
 host-stage numpy samples.
 
+``seed`` (the loader calls it each epoch, ``torchok_tpu/data/datasets/
+base.py:89``) seeds the host prefix: each sample's pass draws from one
+generator made from ``SeedSequence([seed, index])``, so a sample's draws
+depend on the loader's seed, the epoch and its index, and not on which
+loader thread runs it or when. ``torchok_tpu`` mixes the thread id into
+its per-thread streams instead, which no two runs share.
+
 Decoding image files (and with it OpenCV and Pillow, which the port will
 import only inside the decoding functions) comes with the file-backed
 datasets; the in-memory datasets here need neither.
@@ -19,7 +26,7 @@ from typing import Optional, Union
 import numpy as np
 
 from torchok_tpu_torch.data.transforms import Compose, DeviceTransformPipeline
-from torchok_tpu_torch.data.transforms.base import BaseTransform
+from torchok_tpu_torch.data.transforms.base import BaseTransform, sample_generator
 
 _DTYPES = {
     "float32": np.float32,
@@ -50,6 +57,7 @@ class ImageDataset(ABC):
     ):
         self.test_mode = test_mode
         self.input_dtype = input_dtype
+        self._host_seed: Optional[int] = None  # None: unseeded until seed()
         self.transform = self._ensure_compose(transform)
         self.augment = self._ensure_compose(augment)
 
@@ -73,8 +81,19 @@ class ImageDataset(ABC):
             return Compose(list(t), p=1.0)
         return Compose([t], p=1.0)
 
-    def apply_host_pipeline(self, sample: dict) -> dict:
-        sample = self._host_pipeline(**sample)
+    def seed(self, seed: int) -> None:
+        """Seed the host transforms' draws from now on (per epoch)."""
+        self._host_seed = int(seed) & 0x7FFFFFFFFFFFFFFF
+
+    def apply_host_pipeline(self, sample: dict, index: int) -> dict:
+        """Run the host prefix on one sample; ``index`` (the sample's index
+        in the dataset) picks its generator once the dataset is seeded."""
+        if self._host_seed is None:
+            sample = self._host_pipeline(**sample)
+        else:
+            rng = np.random.default_rng(np.random.SeedSequence([self._host_seed, int(index)]))
+            with sample_generator(rng):
+                sample = self._host_pipeline(**sample)
         # with a device suffix the image stays uint8 on the host (4x cheaper
         # host->device copy) and the device pipeline makes it float; when the
         # whole pipeline ran here, cast like the reference ImageDataset does

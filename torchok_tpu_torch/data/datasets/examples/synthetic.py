@@ -41,7 +41,7 @@ class SyntheticClassificationDataset(ImageDataset):
         return out
 
     def __getitem__(self, idx: int) -> dict:
-        sample = self.apply_host_pipeline({"image": self.images[idx]})
+        sample = self.apply_host_pipeline({"image": self.images[idx]}, idx)
         out = {"image": sample["image"], "index": idx}
         if not self.test_mode:
             out["target"] = self.targets[idx]

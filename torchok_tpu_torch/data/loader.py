@@ -66,8 +66,8 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
-        """Epoch-deterministic order and dataset noise, with torchok_tpu's
-        two seeds."""
+        """Epoch-deterministic order and host transform draws, with
+        torchok_tpu's two seeds (the dataset's ``seed`` takes the second)."""
         self.epoch = epoch
         if hasattr(self.dataset, "seed"):
             self.dataset.seed(self.seed * 1_000_003 + epoch)

@@ -8,17 +8,37 @@ torchok/data/transforms/__init__.py:24-116; port of
   torch tensors on the trainer's device, with randomness from a
   ``torch.Generator``;
 * ``Compose.split_device_suffix`` peels the maximal suffix of device-capable
-  ops, which the engine then runs batched on the device after collation.
+  ops, which the engine then runs batched on the device after collation;
+* host randomness comes from the generator that :func:`sample_generator`
+  sets for one sample's pass through the host pipeline (the dataset makes it
+  from its seed and the sample's index), so what a sample draws does not
+  depend on which loader thread runs it. Outside such a pass each thread
+  draws from an unseeded generator of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import threading as _threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from torchok_tpu_torch.constructor import TRANSFORMS
+
+# the generator of the sample the current thread is transforming, if any
+_SAMPLE = _threading.local()
+
+
+@contextlib.contextmanager
+def sample_generator(rng: np.random.Generator) -> Iterator[None]:
+    """Every host transform that runs in this thread inside the block draws
+    from ``rng``: one generator for one sample's whole host pipeline."""
+    _SAMPLE.rng = rng
+    try:
+        yield
+    finally:
+        _SAMPLE.rng = None
 
 
 class BaseTransform:
@@ -37,9 +57,12 @@ class BaseTransform:
 
     @property
     def rng(self) -> np.random.Generator:
-        """Per-thread host RNG: loader threads run transforms concurrently
-        and a numpy Generator is not thread-safe. (Seeding per worker and
-        epoch comes with the training loop.)"""
+        """The current sample's generator (:func:`sample_generator`), else a
+        per-thread unseeded one: loader threads run transforms concurrently
+        and a numpy Generator is not thread-safe."""
+        r = getattr(_SAMPLE, "rng", None)
+        if r is not None:
+            return r
         r = getattr(self._local, "rng", None)
         if r is None:
             r = self._local.rng = np.random.default_rng()

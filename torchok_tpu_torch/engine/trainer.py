@@ -13,8 +13,14 @@ reference: torchok/constructor/runner.py + Lightning internals).
   drop-path draw comes from one device generator seeded ``seed + 7``, every
   random device transform of the train set from one seeded ``seed + 17``;
   nothing reads torch's global generator. Host-side random transforms draw
-  from unseeded per-thread numpy generators that no checkpoint holds, so
-  only a fit whose random transforms all run on the device resumes exactly.
+  from a generator per sample made from the loader's seed, the epoch and
+  the sample's index (``ImageDataset.seed``), so a resume needs only the
+  epoch to redraw them.
+* A module's buffers (ArcFace's dynamic-margin ``step``, BatchNorm's running
+  statistics) move in training forwards only, one forward per micro-batch
+  (``torchok_tpu``'s ``buffers`` and ``batch_stats`` collections, threaded
+  through its train step); they live in the model's ``state_dict``, so a
+  checkpoint carries them.
 * Input pipeline: loader threads fetch and collate numpy batches; the batch
   is copied to the device and the dataset's device transform suffix runs
   there, batched.

@@ -30,12 +30,8 @@ from torchok_tpu_torch.constructor import BACKBONES
 from torchok_tpu_torch.models.base import BaseBackbone
 from torchok_tpu_torch.models.modules.blocks.se import EcaModule, SEModule
 from torchok_tpu_torch.models.modules.bricks.batchnorm import BatchNorm2d
-from torchok_tpu_torch.ops.common import DropPath
+from torchok_tpu_torch.ops.common import DropPath, variance_scaling_
 from torchok_tpu_torch.ops.image import avg_pool, blur_pool, max_pool
-
-# flax's variance_scaling(2.0, "fan_out", "truncated_normal"): a normal cut
-# at two standard deviations, rescaled to the asked variance
-_TRUNC_STD = 0.87962566103423978
 
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
@@ -50,13 +46,10 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, (nn.Conv1d, nn.Conv2d)):
             receptive = math.prod(m.kernel_size)
             if id(m) in attn_convs:
-                fan = m.in_channels // m.groups * receptive
-                std = math.sqrt(1.0 / fan) / _TRUNC_STD
+                variance_scaling_(m.weight, 1.0, m.in_channels // m.groups * receptive,
+                                  generator)
             else:
-                fan = m.out_channels * receptive
-                std = math.sqrt(2.0 / fan) / _TRUNC_STD
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
+                variance_scaling_(m.weight, 2.0, m.out_channels * receptive, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, BatchNorm2d):

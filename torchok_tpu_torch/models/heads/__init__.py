@@ -1,1 +1,2 @@
-from torchok_tpu_torch.models.heads.classification import classification_head  # noqa: F401
+from torchok_tpu_torch.models.heads.classification import (  # noqa: F401
+    arcface_head, classification_head)

@@ -1,1 +1,1 @@
-from torchok_tpu_torch.models.poolings.classification import pooling  # noqa: F401
+from torchok_tpu_torch.models.poolings.classification import linear, pooling  # noqa: F401

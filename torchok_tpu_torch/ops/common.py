@@ -124,6 +124,19 @@ def checkpoint_block(block: Callable[..., torch.Tensor], generator: Optional[tor
     return checkpoint_util.checkpoint(block, *args, use_reentrant=False, context_fn=context_fn)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def variance_scaling_(weight: torch.Tensor, scale: float, fan: int,
+                      generator: torch.Generator) -> None:
+    """Flax's ``variance_scaling(scale, mode, "truncated_normal")`` over
+    ``fan``: a normal cut at two standard deviations, rescaled so its
+    variance is ``scale / fan`` (LeCun normal is scale 1 over fan_in)."""
+    std = math.sqrt(scale / fan) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 def trunc_normal_init(module: nn.Module, generator: torch.Generator,
                       std: float = 0.02) -> None:
     """timm's transformer init, drawn from an explicit generator: truncated

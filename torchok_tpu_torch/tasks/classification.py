@@ -4,7 +4,8 @@ port of ``torchok_tpu.tasks.classification``).
 Assembles backbone -> pooling(opt) -> head(opt), wiring ``in_channels`` from
 the previous stage's ``out_channels``. The forward-with-gt outputs mirror the
 reference: ``embeddings``, ``prediction`` (when a head exists) and ``target``
-passthrough.
+passthrough, and the retrieval datasets' ``scores``, ``query_idxs`` and
+``group_labels`` for the index-based meters' representation mode.
 """
 from __future__ import annotations
 
@@ -17,6 +18,15 @@ from torchok_tpu_torch.constructor import BACKBONES, HEADS, POOLINGS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
 from torchok_tpu_torch.ops.common import trunc_normal_init
 from torchok_tpu_torch.tasks.base import BaseTask
+
+
+def forward_aux_keys(batch: Dict[str, Any], output: Dict[str, Any]) -> Dict[str, Any]:
+    """Retrieval-dataset auxiliaries flow through to the index-based meters
+    (representation mode)."""
+    for key in ("scores", "query_idxs", "group_labels"):
+        if batch.get(key) is not None:
+            output[key] = batch[key]
+    return output
 
 
 class ClassificationModel(nn.Module):
@@ -37,7 +47,7 @@ class ClassificationModel(nn.Module):
             output["prediction"] = self.head(x, target=target)
         if target is not None:
             output["target"] = target
-        return output
+        return forward_aux_keys(batch, output)
 
 
 @TASKS.register_class
@@ -73,7 +83,9 @@ class ClassificationTask(BaseTask):
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_init(self.model, generator)
-        # a backbone with an initial law of its own (ResNet: fan_out convs,
-        # zero-initialised last norms) draws it after the shared one
-        if hasattr(self.model.backbone, "init_weights"):
-            self.model.backbone.init_weights(generator)
+        # a part with an initial law of its own (ResNet: fan_out convs,
+        # zero-initialised last norms; PoolingLinear: nn.Dense's; ArcFaceHead:
+        # Xavier) draws it after the shared one
+        for part in (self.model.backbone, self.model.pooling, self.model.head):
+            if hasattr(part, "init_weights"):
+                part.init_weights(generator)

@@ -32,8 +32,14 @@ modules use the timm or reference key names.
 
 The transformer families have ``params`` only; the ResNet, EfficientNet and
 MobileNetV3 families also have ``batch_stats``, and both collections carry
-over. ``task_name_map`` gives the same correspondence by name (port key ->
-Flax path) for one collection and ``state_dict_to_task_flax`` carries a port
+over. The ``buffers`` collection (ArcFaceHead's dynamic-margin ``step``)
+carries over as the integers it holds; every other leaf as f32. Heads and
+poolings take the plain path: ``PoolingLinear``'s ``fc`` is a Dense, and
+``ArcFaceHead``'s ``weight`` is no ``kernel``, so it keeps its
+(num_classes, in_channels) layout.
+
+``task_name_map`` gives the same correspondence by name (port key -> Flax
+path) for one collection and ``state_dict_to_task_flax`` carries a port
 ``state_dict`` back into the Flax tree of that collection, so parameters,
 gradients and running statistics can be compared leaf by leaf after training
 in either package.
@@ -46,7 +52,7 @@ from typing import Any, Callable, Dict, List, Mapping, Tuple
 import numpy as np
 
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
-COLLECTIONS = ("params", "batch_stats")
+COLLECTIONS = ("params", "batch_stats", "buffers")
 _RESNET = r"^(resnet|resnext|seresne|ecaresne|senet|wide_resnet|(tv|ssl|swsl|ig)_resne)"
 # the EfficientNet and MobileNetV3 families (torchok_tpu.utils.torch_convert's
 # two family patterns, copied)
@@ -189,13 +195,20 @@ def _flax_layout(leaf_name: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
+def _value(leaf: Any) -> np.ndarray:
+    """A leaf as numpy: integers (the ``buffers`` collection's counters)
+    keep their type, everything else becomes f32."""
+    value = np.asarray(leaf)
+    return value if np.issubdtype(value.dtype, np.integer) else value.astype(np.float32)
+
+
 def _key(mapper: Callable[[List[str]], List[str]], path: Tuple[str, ...], prefix: str) -> str:
     return prefix + ".".join(mapper(list(path[:-1])) + [_LEAF.get(path[-1], path[-1])])
 
 
 def _collections(variables: Mapping[str, Any]) -> Dict[str, Mapping[str, Any]]:
-    """``{"params": tree, "batch_stats": tree}`` (those present and not
-    empty) of a variables dict, or of a bare params tree."""
+    """``{"params": tree, "batch_stats": tree, "buffers": tree}`` (those
+    present and not empty) of a variables dict, or of a bare params tree."""
     if "params" not in variables:
         return {"params": variables}
     return {c: variables[c] for c in COLLECTIONS if variables.get(c)}
@@ -214,7 +227,7 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
     out: Dict[str, np.ndarray] = {}
     for tree in _collections(variables).values():
         for path, leaf in _leaves(tree):
-            value = np.ascontiguousarray(_torch_layout(path[-1], np.array(leaf, np.float32)))
+            value = np.array(_torch_layout(path[-1], _value(leaf)), order="C")
             out[_key(mapper, path, prefix)] = value
     return out
 
@@ -256,6 +269,5 @@ def state_dict_to_task_flax(backbone_name: str, state_dict: Mapping[str, Any],
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(
-            _flax_layout(path[-1], np.asarray(state_dict[key], np.float32)))
+        node[path[-1]] = np.array(_flax_layout(path[-1], _value(state_dict[key])), order="C")
     return out
