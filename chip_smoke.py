@@ -138,12 +138,29 @@
      valid/recall_at_5 within the range RecallAtKMeter's semantics allow
      and within 1e-9 of a numpy count over the last epoch's embeddings,
      the meters' CSV columns, all 64 kNN searches on ``cuda``; 0
-     hand-written launches.
+     hand-written launches;
+   * HRNet-W18 with ``HRNetClassificationNeck``, pooling and head
+     (``HRNET_SLICE_CONFIG``, ``HRNET_TRAIN_CONFIG``: bench.py's
+     ``hrnet_w18_224_bs128``, 224x224, bs 128, bf16) in modes test, predict
+     and train as the ResNet-50 slice runs, its f32 logits checked after
+     ``unzero_and_calibrate``, and one f64 forward + backward on two images,
+     card against CPU (each side's f32 gradients lie more than 1e-3 of the
+     largest from f64 at its depth; both distances are printed); the JAX
+     HRNet and neck reach no Pallas kernel, so every counter stays at 0;
+   * the segmentation north star ``configs/segmentation_shapes.yaml``
+     (``SEGMENTATION_RECIPE``) at its short budget (5 epochs, 8000 images;
+     hrnet_w18_small + HRNetSegmentationNeck + SegmentationHead at 32x32,
+     CrossEntropyLoss + DiceLoss, f32, ``steps_per_execution`` 8):
+     valid/JaccardIndex >= 0.838 - 0.03 at step 280, the JaccardIndex of
+     each epoch, train and eval img/s, peak memory, and the last
+     validation's JaccardIndex recounted in numpy from the logits and labels
+     the meter was given (``witness_jaccard``, to 1e-9); 0 hand-written
+     launches.
 6. Prints ``{"kernels": [...]}`` (K1 to K9; K1/K2's times are summed over
    one swinv2_tiny_window8 forward or backward, as before the other windows ran, the K3 to K5 times
    over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
    K7's over the chain's forward, K8's over its four shapes, K9's over B0's
-   nine blocks), the card line,
+   nine blocks), the script's seconds, the card line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -179,8 +196,8 @@ def _synthetic(num_samples, shuffle, drop_last, size=256, batch=128, **extra):
     }]
 
 
-def _task(backbone, size, **backbone_params):
-    return {
+def _task(backbone, size, neck=None, **backbone_params):
+    task = {
         "name": "ClassificationTask",
         "params": {
             "backbone_name": backbone,
@@ -191,13 +208,16 @@ def _task(backbone, size, **backbone_params):
             "inputs": [{"shape": [3, size, size], "dtype": "float32"}],
         },
     }
+    if neck is not None:
+        task["params"]["neck_name"] = neck
+    return task
 
 
-def slice_config(backbone, size, batch=128, **backbone_params):
+def slice_config(backbone, size, batch=128, neck=None, **backbone_params):
     """The inference recipe (configs/classification_<model>_synthetic.yaml)."""
     data = _synthetic(3 * batch, False, False, size, batch)
     return {
-        "task": _task(backbone, size, **backbone_params),
+        "task": _task(backbone, size, neck, **backbone_params),
         "data": {"TEST": data, "PREDICT": data},
         "trainer": {"accelerator": "gpu", "precision": 16,
                     "limit_test_batches": 3, "limit_predict_batches": 3},
@@ -206,10 +226,10 @@ def slice_config(backbone, size, batch=128, **backbone_params):
     }
 
 
-def train_config(backbone, size, batch=128, **backbone_params):
+def train_config(backbone, size, batch=128, neck=None, **backbone_params):
     """The train recipe (configs/classification_<model>_synthetic_train.yaml)."""
     return {
-        "task": _task(backbone, size, **backbone_params),
+        "task": _task(backbone, size, neck, **backbone_params),
         "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
                                    "mapping": {"input": "prediction", "target": "target"}}]},
         "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
@@ -234,6 +254,9 @@ RESNET_TRAIN_CONFIG = train_config("resnet50", 224, batch=256)
 EFFNET_SLICE_CONFIG = slice_config("efficientnet_b0", 224, batch=256)
 EFFNET_TRAIN_CONFIG = train_config("efficientnet_b0", 224, batch=256)
 MNV3_SLICE_CONFIG = slice_config("mobilenetv3_large_100", 224, batch=256)
+# bench.py's hrnet_w18_224_bs128 case: HRNet-W18 with HRNetClassificationNeck
+HRNET_SLICE_CONFIG = slice_config("hrnet_w18", 224, neck="HRNetClassificationNeck")
+HRNET_TRAIN_CONFIG = train_config("hrnet_w18", 224, neck="HRNetClassificationNeck")
 
 _SHAPES_TRANSFORM = [{"name": "Resize", "params": {"height": 32, "width": 32}},
                      {"name": "Normalize", "params": {"mean": [0.485, 0.456, 0.406],
@@ -358,27 +381,87 @@ SHAPES_CSV_HEADER = ["step", "train/loss", "train/Accuracy", "train/F1Score",
                      "valid/Accuracy", "valid/F1Score", "lr"]
 
 
-def shapes_config(log_dir: str) -> dict:
-    """The shapes recipe with the short budget's overrides, logging under
-    ``log_dir``."""
+def _with_overrides(recipe: dict, overrides, log_dir: str) -> dict:
+    """``recipe`` with a short budget's ``overrides``, logging under ``log_dir``."""
     from torchok_tpu_torch.constructor.config import apply_override
-    cfg = copy.deepcopy(SHAPES_RECIPE)
-    for override in SHAPES_OVERRIDES:
+    cfg = copy.deepcopy(recipe)
+    for override in overrides:
         key, _, value = override.partition("=")
         apply_override(cfg, key, value)
     cfg["logger"]["log_dir"] = log_dir
     return cfg
 
+
+def shapes_config(log_dir: str) -> dict:
+    """The shapes recipe with the short budget's overrides, logging under
+    ``log_dir``."""
+    return _with_overrides(SHAPES_RECIPE, SHAPES_OVERRIDES, log_dir)
+
+
 def arcface_config(log_dir: str) -> dict:
     """The arcface recipe with the short budget's overrides, logging under
     ``log_dir``."""
-    from torchok_tpu_torch.constructor.config import apply_override
-    cfg = copy.deepcopy(ARCFACE_RECIPE)
-    for override in ARCFACE_OVERRIDES:
-        key, _, value = override.partition("=")
-        apply_override(cfg, key, value)
-    cfg["logger"]["log_dir"] = log_dir
-    return cfg
+    return _with_overrides(ARCFACE_RECIPE, ARCFACE_OVERRIDES, log_dir)
+
+
+_SEGMENTATION_TRANSFORM = [{"name": "Resize", "params": {"height": 32, "width": 32}},
+                           {"name": "Normalize"}, {"name": "ToTensorV2"}]
+
+
+def _segmentation_data(train, num_samples):
+    return [{"dataloader": {"batch_size": 128, "num_workers": 4, "drop_last": train,
+                            "shuffle": train},
+             "dataset": {"name": "SyntheticShapesSegmentationDataset",
+                         "params": {"input_dtype": "float32", "train": train,
+                                    "num_samples": num_samples},
+                         "transform": copy.deepcopy(_SEGMENTATION_TRANSFORM)}}]
+
+
+def _segmentation_loss(name, tag, weight, **params):
+    loss = {"name": name, "tag": tag, "weight": weight,
+            "mapping": {"input": "prediction", "target": "target"}}
+    return {**loss, "params": params} if params else loss
+
+
+# configs/segmentation_shapes.yaml, the segmentation north star (a CPU test
+# holds the two equal)
+SEGMENTATION_RECIPE = {
+    "task": {"name": "SegmentationTask",
+             "params": {"backbone_name": "hrnet_w18_small",
+                        "backbone_params": {"pretrained": False, "in_channels": 3},
+                        "neck_name": "HRNetSegmentationNeck",
+                        "head_name": "SegmentationHead", "head_params": {"num_classes": 11},
+                        "inputs": [{"shape": [3, 32, 32], "dtype": "float32"}]}},
+    "joint_loss": {"losses": [_segmentation_loss("CrossEntropyLoss", "ce", 0.6),
+                              _segmentation_loss("DiceLoss", "dice", 0.4, mode="multiclass")]},
+    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.001}},
+                      "scheduler": {"name": "ExponentialLR", "params": {"gamma": 0.95}}}],
+    "data": {"TRAIN": _segmentation_data(True, 20000),
+             "VALID": _segmentation_data(False, 2000)},
+    "trainer": {"accelerator": "auto", "max_epochs": 15, "precision": 32,
+                "num_sanity_val_steps": 0, "steps_per_execution": 8},
+    "seed_params": {"seed": 42},
+    "logger": {"log_dir": "${oc.env:HOME}/.cache/torchok_tpu/shapes_seg/logs",
+               "experiment_name": "hrnet_w18_small",
+               "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}", "name": "CSVLogger"},
+    "callbacks": [{"name": "FinalizeLogger"}],
+    "metrics": [{"name": "JaccardIndex", "params": {"num_classes": 11, "ignore_index": 0},
+                 "mapping": {"preds": "prediction", "target": "target"},
+                 "phases": ["VALID"]}],
+}
+# the short budget of tools/north_star_baselines.json ("segmentation"), held
+# one-sided to valid/JaccardIndex >= 0.838 - 0.03 as tools/check_north_stars.py does
+SEGMENTATION_OVERRIDES = ["trainer.max_epochs=5", "data.TRAIN.0.dataset.params.num_samples=8000"]
+SEGMENTATION_REFERENCE = 0.838
+SEGMENTATION_TOLERANCE = 0.03
+# drop_last takes the super-batch of 8 x 128: 8000 // 1024 = 7 executions an epoch
+SEGMENTATION_STEPS = 5 * 7 * 8
+
+
+def segmentation_config(log_dir: str) -> dict:
+    """The segmentation recipe with the short budget's overrides, logging
+    under ``log_dir``."""
+    return _with_overrides(SEGMENTATION_RECIPE, SEGMENTATION_OVERRIDES, log_dir)
 
 
 TRAIN_STEPS = 10
@@ -1769,11 +1852,16 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
         records[kernel]["launches"] += count
 
 
-def gradient_reference(label, config, size, want, probe):
-    """One f32 forward + backward of the full-width model on two images: the
-    card (the kernels in ``want``, with their launch counts) against the CPU
-    (plain versions), all parameter gradients. ``probe`` names a parameter
-    that must be among them."""
+def gradient_reference(label, config, size, want, probe, drop_path=True, dtype="float32"):
+    """One forward + backward of the full-width model on two images in
+    ``dtype``: the card (the kernels in ``want``, with their launch counts)
+    against the CPU (plain versions), all parameter gradients. ``probe``
+    names a parameter that must be among them. ``drop_path``: the backbone
+    takes a stochastic depth rate, set to 0 here. A model that reaches no
+    hand-written kernel may take f64 (HRNet-W18: f32 weight gradients lie
+    more than 1e-3 of the largest from f64 on the card and on its host's
+    CPU); the distance of each side's f32 gradients from the reference is
+    printed then."""
     import torch
     import torchok_tpu_torch  # noqa: F401 — registers the components
     from torchok_tpu_torch.constructor import TASKS
@@ -1782,7 +1870,8 @@ def gradient_reference(label, config, size, want, probe):
     from torchok_tpu_torch.ops.common import LAUNCHES
 
     cfg = copy.deepcopy(config)
-    cfg["task"]["params"]["backbone_params"]["drop_path_rate"] = 0.0
+    if drop_path:
+        cfg["task"]["params"]["backbone_params"]["drop_path_rate"] = 0.0
     config = merge_structured(config_from_dict(cfg))
     task = TASKS.get(config.task.name)(config, **config.task.params.to_dict())
     generator = torch.Generator()
@@ -1791,10 +1880,11 @@ def gradient_reference(label, config, size, want, probe):
     image = torch.randn((2, 3, size, size), generator=generator)
     target = torch.tensor([3, 977])
 
-    def grads(device):
-        model = task.model.to(device).train()
+    def grads(device, dtype=dtype):
+        model = task.model.to(device=device, dtype=getattr(torch, dtype)).train()
         model.zero_grad(set_to_none=True)
-        out = model({"image": image.to(device), "target": target.to(device)})
+        out = model({"image": image.to(device=device, dtype=getattr(torch, dtype)),
+                     "target": target.to(device)})
         total, _ = task.compute_loss(out)
         total.backward()
         # parameters outside the classification path (SwinV2's three inner
@@ -1816,8 +1906,8 @@ def gradient_reference(label, config, size, want, probe):
         largest = max(largest, ref.abs().max().item())
         if err > worst:
             worst_name, worst = name, err
-    tol = 1e-3 * largest  # f32 on both sides, other summation orders through every block
-    print(f"{label} gradient reference (f32, 2 images, card kernels vs CPU plain): loss "
+    tol = 1e-3 * largest  # one dtype on both sides, other summation orders through every block
+    print(f"{label} gradient reference ({dtype}, 2 images, card kernels vs CPU plain): loss "
           f"{loss_card:.6f} vs {loss_cpu:.6f}; max_abs_err={worst:.3e} at {worst_name} "
           f"(tol 1e-3 x largest gradient {largest:.3e} = {tol:.3e}); launches {counts}",
           flush=True)
@@ -1825,6 +1915,15 @@ def gradient_reference(label, config, size, want, probe):
     if not worst <= tol:
         fail(f"{label}: gradients on the card differ from the CPU run by {worst:.3e} "
              f"at {worst_name}")
+    if dtype != "float32":
+        # how far f32 gradients lie from this reference on each side (no gate)
+        for device in (torch.device("cuda", 0), torch.device("cpu")):
+            got = grads(device, "float32")[0]
+            off = max(((got[n].to(ref.dtype) - ref).abs().max().item(), n)
+                      for n, ref in on_cpu.items())
+            print(f"{label}: f32 gradients on {device.type} lie {off[0]:.3e} "
+                  f"({off[0] / largest:.3e} of the largest) from the CPU's {dtype} ones, at "
+                  f"{off[1]}", flush=True)
 
 
 def sass_functions(kernel, library=None) -> dict:
@@ -2257,6 +2356,131 @@ def check_knn_index():
     print(f"kNN index phase: {time.perf_counter() - start:.1f} s", flush=True)
 
 
+def witness_jaccard(preds, targets, num_classes, ignore_index):
+    """JaccardIndex recounted in numpy from one validation's logits
+    ``(N, C, H, W)`` and pixel labels: the confusion matrix of the argmax over
+    the classes, the per-class IoU in f32 and their mean over all
+    ``num_classes`` (the ignored class included), summed in order and times
+    1/C in f32, as the JAX package's ``jnp.mean`` of up to 16 values
+    gives it on the CPU."""
+    import numpy as np
+    hard = np.argmax(preds, axis=1).reshape(-1)
+    truth = targets.reshape(-1)
+    keep = truth != ignore_index
+    cm = np.bincount(truth[keep] * num_classes + hard[keep],
+                     minlength=num_classes ** 2).reshape(num_classes, num_classes)
+    cm = cm.astype(np.float32)
+    tp = np.diag(cm)
+    iou = tp / np.maximum(cm.sum(0) + cm.sum(1) - tp, np.float32(1e-12))
+    total = np.float32(0.0)
+    for value in iou:
+        total = np.float32(total + value)
+    return float(np.float32(total * np.float32(1.0 / num_classes)))
+
+
+def run_segmentation_recipe():
+    """``configs/segmentation_shapes.yaml`` at its short budget through
+    ``run(..., "train")`` as a user runs it (hrnet_w18_small +
+    HRNetSegmentationNeck + SegmentationHead at 32x32, CE + Dice, f32 with TF32
+    off, ``steps_per_execution`` 8, 4 loader workers, CSVLogger,
+    FinalizeLogger): the reference's JaccardIndex, its step count, the
+    JaccardIndex after each epoch, and the last validation's JaccardIndex
+    recounted in numpy (``witness_jaccard``) from the logits and labels the
+    meter was given, the labels also held to the VALID dataset's masks. The
+    JAX HRNet, necks, head and losses reach no Pallas kernel, so every
+    hand-written counter stays at 0."""
+    import csv
+    import tempfile
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor import DATASETS, METRICS
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    start = time.perf_counter()
+    # the logits and labels of each JaccardIndex update since its last compute
+    meter = METRICS.get("JaccardIndex")
+    update, compute, seen, kept = meter.update, meter.compute, [], {}
+
+    def keep_inputs(self, state, preds, target, **kwargs):
+        seen.append((preds.detach().cpu().numpy(), target.detach().cpu().numpy()))
+        return update(self, state, preds=preds, target=target, **kwargs)
+
+    def keep_last(self, state):
+        kept["inputs"] = list(seen)
+        seen.clear()
+        return compute(self, state)
+
+    with tempfile.TemporaryDirectory(prefix="segmentation_") as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        meter.update, meter.compute = keep_inputs, keep_last
+        try:
+            trainer, logs = run(segmentation_config(os.path.join(tmp, "train")), "train")
+        finally:
+            # JaccardIndex inherits update and defines compute
+            del meter.update
+            meter.compute = compute
+        torch.cuda.synchronize()
+        require_launches("segmentation recipe train", launch_counts(), {})
+        peak = torch.cuda.max_memory_allocated()
+        stats, evals = trainer.last_fit, trainer.last_eval
+        jaccard = logs.get("valid/JaccardIndex", float("nan"))
+        floor = SEGMENTATION_REFERENCE - SEGMENTATION_TOLERANCE
+        with open(os.path.join(trainer.logger.log_dir, "metrics.csv"), newline="") as f:
+            epochs = [float(r["valid/JaccardIndex"]) for r in csv.DictReader(f)
+                      if r.get("valid/JaccardIndex")]
+        print(f"segmentation recipe (hrnet_w18_small + HRNetSegmentationNeck + "
+              f"SegmentationHead, CE + Dice, short budget): valid/JaccardIndex={jaccard:.6f} at "
+              f"global_step {trainer.global_step} (the reference's short budget 0.838, floor "
+              f"{floor:.4f}; at most 10/11 with the ignored class in the mean); by epoch "
+              f"{[round(v, 6) for v in epochs]}; smoke train img/s "
+              f"{stats['images'] / stats['seconds']:.2f} (a smoke reading: host clock, first "
+              f"fetch to each epoch's loss read-back, {stats['steps']} steps, {stats['images']} "
+              f"images in {stats['seconds']:.3f} s, bs128 x 8 per execution, f32); eval img/s "
+              f"{evals['images'] / evals['seconds']:.2f} (the last validation, {evals['images']} "
+              f"images in {evals['seconds']:.3f} s, host clock incl. the metric's read-back); "
+              f"peak device memory {peak / 2**20:.1f} MiB on {card_line()}", flush=True)
+        if not jaccard >= floor:
+            fail(f"segmentation recipe: valid/JaccardIndex {jaccard:.4f} below {floor:.4f}")
+        if trainer.global_step != SEGMENTATION_STEPS or stats["steps"] != SEGMENTATION_STEPS:
+            fail(f"segmentation recipe: {trainer.global_step} steps ({stats['steps']} run), "
+                 f"expected {SEGMENTATION_STEPS}")
+        if len(epochs) != 5 or epochs[-1] != jaccard:
+            fail(f"segmentation recipe: metrics.csv holds valid/JaccardIndex {epochs}, expected "
+                 f"5 epochs ending at {jaccard}")
+
+        valid = SEGMENTATION_RECIPE["data"]["VALID"][0]["dataset"]["params"]
+        masks = DATASETS.get("SyntheticShapesSegmentationDataset")(None, **valid).masks
+        preds = np.concatenate([p for p, _ in kept["inputs"]])
+        targets = np.concatenate([t for _, t in kept["inputs"]])
+        if not np.array_equal(targets, masks):
+            fail("segmentation recipe: the labels JaccardIndex was given are not the VALID "
+                 "dataset's masks")
+        params = SEGMENTATION_RECIPE["metrics"][0]["params"]
+        witness = witness_jaccard(preds, targets, params["num_classes"], params["ignore_index"])
+        print(f"segmentation recipe: valid/JaccardIndex recounted in numpy from the last "
+              f"validation's {preds.shape} logits and the dataset's masks {witness:.12f} "
+              f"against the meter's {jaccard:.12f} (tol 1e-9)", flush=True)
+        if not abs(witness - jaccard) <= 1e-9:
+            fail(f"segmentation recipe: valid/JaccardIndex {jaccard} differs from its numpy "
+                 f"witness {witness}")
+        with open(os.path.join(trainer.logger.log_dir, "status.txt")) as f:
+            status = f.read()
+        if status != "success":
+            fail(f"segmentation recipe: status.txt reads {status!r}")
+    print(f"segmentation recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def unzero_and_calibrate(model, images):
+    """HRNet's blocks at unit last-norm scale (``unzero_last_norms``) and its
+    norms at the images' statistics (``calibrate_norms``): unit scales alone
+    grow the logits through the fuse layers' sums to order 1e8."""
+    unzero_last_norms(model, images)
+    calibrate_norms(model, images)
+
+
 RESUME_EPOCHS = 3
 
 
@@ -2333,6 +2557,7 @@ def run_resume_phase(records):
 
 
 def main() -> None:
+    script_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -2459,12 +2684,26 @@ def main() -> None:
     print("efficientnet_b0 (test, predict, train) and mobilenetv3_large_100 (test): 0 launches "
           "of every hand-written kernel", flush=True)
 
+    # bench.py's hrnet_w18_224_bs128: HRNet-W18 with HRNetClassificationNeck;
+    # the JAX HRNet and neck reach no Pallas kernel, so every counter stays at 0
+    run_slice("hrnet_w18", HRNET_SLICE_CONFIG, {}, records, 224, unzero_and_calibrate)
+    run_train_slice("hrnet_w18", HRNET_TRAIN_CONFIG, 224, {}, {},
+                    ("backbone.stage4.2.fuse_layers.0.1.0.weight",
+                     "backbone.transition3.3.0.0.weight", "neck.final.conv.weight", "head"),
+                    records)
+    gradient_reference("hrnet_w18", HRNET_TRAIN_CONFIG, 224, {}, "neck.final.conv",
+                       drop_path=False, dtype="float64")
+    print("hrnet_w18 (test, predict, train, gradient reference): 0 launches of every "
+          "hand-written kernel", flush=True)
+
     run_shapes_recipe()
     run_resume_phase(records)
     check_knn_index()
     run_arcface_recipe()
+    run_segmentation_recipe()
 
     print(json.dumps({"kernels": list(all_records)}), flush=True)
+    print(f"chip_smoke total: {time.perf_counter() - script_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -80,8 +80,13 @@ def test_cross_entropy_bf16_logits_are_reduced_in_f32_and_differentiable():
     assert abs(loss.item() - ref.item()) <= 1e-6
     loss.backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
-    with pytest.raises(NotImplementedError, match=r"\(N, C\)"):
-        LOSSES.get("CrossEntropyLoss")()(torch.zeros(2, 5, 3, 3), torch.zeros(2, 3, 3).long())
+    # pixel logits take their classes at dim 1, as torch's cross_entropy does
+    # (tests/test_torch_segmentation.py holds every option against the JAX
+    # package); a class dim elsewhere raises by name
+    pixels = LOSSES.get("CrossEntropyLoss")()(torch.zeros(2, 5, 3, 3), torch.zeros(2, 3, 3).long())
+    assert abs(pixels.item() - np.log(5.0)) <= 1e-6
+    with pytest.raises(ValueError, match="CrossEntropyLoss.*dim 1"):
+        LOSSES.get("CrossEntropyLoss")()(torch.zeros(2, 3, 3, 5), torch.zeros(2, 3, 3).long())
 
 
 @pytest.mark.parametrize("weights,normalize", [([None, None], True), ([2.0, 6.0], True),

@@ -1,9 +1,10 @@
-"""Synthetic classification dataset for benchmarks and offline smoke runs
-(port of ``torchok_tpu.data.datasets.examples.synthetic``). The images come
-from ``numpy.random.default_rng(seed)`` exactly as in ``torchok_tpu``, so both
-packages see the same pixels and labels for the same seed; the shapes
-dataset renders its patterns with the same numpy calls in the same order, so
-its images, targets and masks equal ``torchok_tpu``'s bit for bit."""
+"""Synthetic classification and segmentation datasets for benchmarks and
+offline smoke runs (port of ``torchok_tpu.data.datasets.examples.synthetic``).
+The images come from ``numpy.random.default_rng(seed)`` exactly as in
+``torchok_tpu``, so both packages see the same pixels and labels for the same
+seed; the shapes datasets render their patterns with the same numpy calls in
+the same order, so their images, targets and masks equal ``torchok_tpu``'s
+bit for bit."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -168,3 +169,31 @@ class SyntheticShapesDataset(ImageDataset):
 
     get_batch = SyntheticClassificationDataset.get_batch
     __getitem__ = SyntheticClassificationDataset.__getitem__
+
+
+@DATASETS.register_class
+class SyntheticShapesSegmentationDataset(SyntheticShapesDataset):
+    """Segmentation variant of the shapes dataset: per-pixel labels with
+    0 = background and 1..10 = the pattern classes (train/val from disjoint
+    generator seeds, like the classification variant)."""
+
+    def get_batch(self, idxs: np.ndarray) -> dict:
+        # pixel labels travel as 'mask' so geometric device ops (Resize)
+        # transform them with the image; the trainer renames them 'target'
+        # after the device pipeline
+        out = {"image": self.images[idxs], "index": idxs.astype("int64")}
+        if not self.test_mode:
+            out["mask"] = self.masks[idxs]
+        return out
+
+    def __getitem__(self, idx: int) -> dict:
+        sample = {"image": self.images[idx]}
+        if not self.test_mode:
+            sample["mask"] = self.masks[idx]
+        sample = self.apply_host_pipeline(sample, idx)
+        out = {"image": sample["image"], "index": idx}
+        if not self.test_mode:
+            # with a device pipeline the labels keep its key
+            key = "mask" if self.device_pipeline else "target"
+            out[key] = np.asarray(sample["mask"]).astype(np.int64)
+        return out

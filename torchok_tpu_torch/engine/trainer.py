@@ -198,6 +198,10 @@ class Trainer:
                 batch = pipe(batch, generator)
             if not batch["image"].is_floating_point():
                 batch["image"] = batch["image"].float()
+            # segmentation labels ride the device pipeline as 'mask' (its
+            # geometric ops move them with the image); tasks take 'target'
+            if "mask" in batch and "target" not in batch:
+                batch["target"] = batch.pop("mask")
             return batch
 
         return device_fn

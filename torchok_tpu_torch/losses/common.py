@@ -4,8 +4,9 @@ torchok/losses/__init__.py:13-34; port of ``torchok_tpu.losses.common``).
 Only ``CrossEntropyLoss`` is ported so far. Its arithmetic is written out as
 in ``torchok_tpu`` (f32 log-softmax, one-hot with smoothing, the class
 weight of the target applied to the whole smoothed term), so both packages
-give the same value for every option; the class dimension is dim 1 of a
-``(N, C)`` input, the only layout ported.
+give the same value for every option. The class dimension is dim 1 of an
+``(N, C)`` or ``(N, C, d1, ...)`` input, as in torch and TorchOk; the JAX
+package takes the same logits channels-last.
 """
 from __future__ import annotations
 
@@ -27,11 +28,26 @@ def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
     raise ValueError(f"Unknown reduction {reduction!r}")
 
 
+def check_class_dim(name: str, input: torch.Tensor, target: torch.Tensor) -> None:
+    """Raise unless ``target`` is class indices of ``input``'s shape less its
+    class dim 1, or ``input``'s own shape (probabilities, one-hot or labels
+    per channel)."""
+    if input.dim() < 2:
+        raise ValueError(f"{name}: input of shape {tuple(input.shape)} has no class dim 1")
+    indices = (input.shape[0],) + tuple(input.shape[2:])
+    if tuple(target.shape) not in (indices, tuple(input.shape)):
+        raise ValueError(
+            f"{name}: input {tuple(input.shape)} takes its classes at dim 1 (N, C, d1, ...), "
+            f"so the target must be {indices} or {tuple(input.shape)}, got "
+            f"{tuple(target.shape)}")
+
+
 @LOSSES.register_class
 class CrossEntropyLoss:
-    """Softmax cross-entropy over ``(N, C)`` logits: integer class targets
-    or class-probability targets, optional class weights, ignore_index,
-    label smoothing."""
+    """Softmax cross-entropy over ``(N, C)`` or ``(N, C, d1, ...)`` logits:
+    integer class targets ``(N, d1, ...)`` or class-probability targets of
+    the input's shape, optional class weights, ignore_index, label
+    smoothing. ``reduction="none"`` gives ``(N, d1, ...)``."""
 
     def __init__(self, weight: Optional[Sequence[float]] = None,
                  ignore_index: int = -100, reduction: str = "mean",
@@ -42,14 +58,14 @@ class CrossEntropyLoss:
         self.label_smoothing = label_smoothing
 
     def __call__(self, input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        if input.dim() != 2:
-            raise NotImplementedError(
-                f"CrossEntropyLoss takes (N, C) logits so far, got {tuple(input.shape)}")
-        logits = input.float()
+        check_class_dim("CrossEntropyLoss", input, target)
+        # the class dim last, as the JAX package takes the logits (a view:
+        # the (N, C) path is unchanged)
+        logits = input.float().movedim(1, -1)
         num_classes = logits.shape[-1]
         logp = F.log_softmax(logits, dim=-1)
         if target.dim() == logits.dim():  # probability targets
-            loss = -torch.sum(target.float() * logp, dim=-1)
+            loss = -torch.sum(target.float().movedim(1, -1) * logp, dim=-1)
             mask = torch.ones_like(loss, dtype=torch.bool)
         else:
             tgt = target.long()

@@ -1,1 +1,1 @@
-from torchok_tpu_torch.models import backbones, heads, poolings  # noqa: F401
+from torchok_tpu_torch.models import backbones, heads, necks, poolings  # noqa: F401

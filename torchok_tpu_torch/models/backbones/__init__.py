@@ -1,2 +1,2 @@
-from torchok_tpu_torch.models.backbones import (davit, efficientnet, gcvit, mobilenetv3,  # noqa: F401
-                                              resnet, swin)
+from torchok_tpu_torch.models.backbones import (davit, efficientnet, gcvit, hrnet,  # noqa: F401
+                                              mobilenetv3, resnet, swin)

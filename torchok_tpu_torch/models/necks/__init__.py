@@ -1,0 +1,2 @@
+from torchok_tpu_torch.models.necks.classification.hrnet import HRNetClassificationNeck  # noqa: F401
+from torchok_tpu_torch.models.necks.segmentation.hrnet import HRNetSegmentationNeck  # noqa: F401

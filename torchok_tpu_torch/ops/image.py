@@ -1,8 +1,8 @@
 """Image ops (port of ``max_pool``, ``avg_pool``, ``blur_pool``,
 ``resize_bilinear`` and ``resize_nearest_cv2`` of ``torchok_tpu.ops.image``;
 that module's adaptive pooling and coordinate helpers are not ported yet).
-The pools take NCHW tensors; the resizes take the data pipeline's NHWC (or
-HWC) images."""
+The pools and ``resize_bilinear_nchw`` (the models' resampling) take NCHW
+tensors; the other resizes take the data pipeline's NHWC (or HWC) images."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -57,10 +57,16 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     squeeze = x.ndim == 3
     if squeeze:
         x = x[None]
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
-                        align_corners=False, antialias=False)
-    out = out.permute(0, 2, 3, 1).contiguous()
+    out = resize_bilinear_nchw(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1).contiguous()
     return out[0] if squeeze else out
+
+
+def resize_bilinear_nchw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW feature maps to ``size=(H, W)``: half-pixel
+    centres, two taps, no antialiasing, as ``torchok_tpu.ops.image.
+    resize_bilinear`` resamples the models' NHWC maps."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
+                         antialias=False)
 
 
 def nearest_cv2_indices(src: int, dst: int) -> np.ndarray:

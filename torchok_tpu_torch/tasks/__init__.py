@@ -1,1 +1,1 @@
-from torchok_tpu_torch.tasks import classification  # noqa: F401
+from torchok_tpu_torch.tasks import classification, segmentation  # noqa: F401

@@ -1,11 +1,12 @@
 """ClassificationTask (reference: torchok/tasks/classification.py:12-123;
 port of ``torchok_tpu.tasks.classification``).
 
-Assembles backbone -> pooling(opt) -> head(opt), wiring ``in_channels`` from
-the previous stage's ``out_channels``. The forward-with-gt outputs mirror the
-reference: ``embeddings``, ``prediction`` (when a head exists) and ``target``
-passthrough, and the retrieval datasets' ``scores``, ``query_idxs`` and
-``group_labels`` for the index-based meters' representation mode.
+Assembles backbone -> neck(opt) -> pooling(opt) -> head(opt), wiring
+``in_channels`` from the previous stage's ``out_channels``. The
+forward-with-gt outputs mirror the reference: ``embeddings``, ``prediction``
+(when a head exists) and ``target`` passthrough, and the retrieval datasets'
+``scores``, ``query_idxs`` and ``group_labels`` for the index-based meters'
+representation mode.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from torchok_tpu_torch.constructor import BACKBONES, HEADS, POOLINGS, TASKS
+from torchok_tpu_torch.constructor import BACKBONES, HEADS, NECKS, POOLINGS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
 from torchok_tpu_torch.ops.common import trunc_normal_init
 from torchok_tpu_torch.tasks.base import BaseTask
@@ -30,16 +31,19 @@ def forward_aux_keys(batch: Dict[str, Any], output: Dict[str, Any]) -> Dict[str,
 
 
 class ClassificationModel(nn.Module):
-    def __init__(self, backbone: nn.Module, pooling: Optional[nn.Module] = None,
-                 head: Optional[nn.Module] = None):
+    def __init__(self, backbone: nn.Module, neck: Optional[nn.Module] = None,
+                 pooling: Optional[nn.Module] = None, head: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
+        self.neck = neck
         self.pooling = pooling
         self.head = head
 
     def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         target = batch.get("target")
         x = self.backbone(batch["image"])
+        if self.neck is not None:
+            x = self.neck(x)
         if self.pooling is not None:
             x = self.pooling(x)
         output = {"embeddings": x}
@@ -66,11 +70,13 @@ class ClassificationTask(BaseTask):
         # `inputs` (example input specs) is accepted for recipe compatibility:
         # the port's modules need no example batch to initialise
         super().__init__(hparams, **kwargs)
-        if neck_name:
-            raise NotImplementedError("classification necks are not ported yet")
         backbone = BACKBONES.get(backbone_name)(**dict(backbone_params or {}))
 
         in_channels = backbone.out_channels
+        neck = None
+        if neck_name:
+            neck = NECKS.get(neck_name)(in_channels=in_channels, **dict(neck_params or {}))
+            in_channels = neck.out_channels
         pooling = None
         if pooling_name:
             pooling = POOLINGS.get(pooling_name)(in_channels=in_channels,
@@ -79,13 +85,13 @@ class ClassificationTask(BaseTask):
         head = None
         if head_name:
             head = HEADS.get(head_name)(in_channels=in_channels, **dict(head_params or {}))
-        self.model = ClassificationModel(backbone, pooling, head)
+        self.model = ClassificationModel(backbone, neck, pooling, head)
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_init(self.model, generator)
-        # a part with an initial law of its own (ResNet: fan_out convs,
-        # zero-initialised last norms; PoolingLinear: nn.Dense's; ArcFaceHead:
-        # Xavier) draws it after the shared one
-        for part in (self.model.backbone, self.model.pooling, self.model.head):
+        # a part with an initial law of its own (ResNet, HRNet and its necks:
+        # fan_out convs, zero-initialised last norms; PoolingLinear: nn.Dense's;
+        # ArcFaceHead: Xavier) draws it after the shared one
+        for part in (self.model.backbone, self.model.neck, self.model.pooling, self.model.head):
             if hasattr(part, "init_weights"):
                 part.init_weights(generator)

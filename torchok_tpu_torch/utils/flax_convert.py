@@ -26,7 +26,13 @@ modules use the timm or reference key names.
   ``conv1.{3k+1}``, ``stem_pool_conv``/``stem_pool_bn`` -> ``maxpool.0``/
   ``maxpool.1``, ``downsample/conv``/``downsample/bn`` -> ``downsample.0``/
   ``.1``, or ``.1``/``.2`` where the registry entry has ``avg_down``; the
-  EfficientNet and MobileNetV3 families: ``blocks_2_1`` -> ``blocks.2.1``).
+  EfficientNet and MobileNetV3 families: ``blocks_2_1`` -> ``blocks.2.1``;
+  HRNet: ``layer1_0`` -> ``layer1.0``, ``transition1/t_0_conv`` ->
+  ``transition1.0.0`` (``t_{n}`` of ``transition{n}``, a new branch, ->
+  ``transition{n}.{n}.0.0``), ``stage2_0/branch_1_block_0`` ->
+  ``stage2.0.branches.1.0``, ``fuse/fuse_1_0_0_conv`` ->
+  ``fuse_layers.1.0.0.0`` and ``fuse/fuse_0_1_bn`` -> ``fuse_layers.0.1.1``;
+  the necks: ``downsample/conv``/``downsample/bn`` -> ``downsample.0``/``.1``).
   Depthwise and 1x1 conv kernels take the same HWIO -> OIHW rule;
   ``relative_position_bias_table`` and ``gamma`` carry over as they are.
 
@@ -34,7 +40,8 @@ The transformer families have ``params`` only; the ResNet, EfficientNet and
 MobileNetV3 families also have ``batch_stats``, and both collections carry
 over. The ``buffers`` collection (ArcFaceHead's dynamic-margin ``step``)
 carries over as the integers it holds; every other leaf as f32. Heads and
-poolings take the plain path: ``PoolingLinear``'s ``fc`` is a Dense, and
+poolings take the plain path (the segmentation head's ``classifier`` is a
+1x1 conv with a bias): ``PoolingLinear``'s ``fc`` is a Dense, and
 ``ArcFaceHead``'s ``weight`` is no ``kernel``, so it keeps its
 (num_classes, in_channels) layout.
 
@@ -138,11 +145,38 @@ def _efficientnet_path(parts: List[str]) -> List[str]:
     return out
 
 
+def _hrnet_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for prev, p in zip([""] + parts, parts):
+        if (m := re.fullmatch(r"(layer|stage)(\d+)_(\d+)", p)):
+            out += [f"{m[1]}{m[2]}", m[3]]
+        elif (m := re.fullmatch(r"branch_(\d+)_block_(\d+)", p)):
+            out += ["branches", m[1], m[2]]
+        elif prev == "downsample" and p in ("conv", "bn"):
+            out.append("0" if p == "conv" else "1")
+        elif p == "fuse":
+            out.append("fuse_layers")
+        elif (m := re.fullmatch(r"fuse_(\d+(?:_\d+)+)_(conv|bn)", p)):
+            out += m[1].split("_") + ["0" if m[2] == "conv" else "1"]
+        elif (m := re.fullmatch(r"t_(\d+)_(conv|bn)", p)):
+            # transition{n} feeds stage n + 1, whose branch n is new: timm
+            # nests that branch's conv and norm one Sequential deeper
+            new = int(m[1]) == int(prev[len("transition"):])
+            out += [m[1]] + (["0"] if new else []) + ["0" if m[2] == "conv" else "1"]
+        else:
+            out.append(p)
+    return out
+
+
 def _plain_path(parts: List[str]) -> List[str]:
     return list(parts)
 
 
 _FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
+    (r"^hrnet", _hrnet_path),
+    # a neck (the task's "neck" part or a neck class): its Bottlenecks'
+    # shortcut projections as the ResNet family names them
+    (r"^(neck|\w+Neck)$", _resnet_path(False)),
     (r"^swinv2", _swin_path),
     (r"^gcvit", _gcvit_path),
     (r"^davit", _davit_path),
@@ -234,10 +268,10 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
 
 def task_flax_to_state_dict(backbone_name: str,
                             variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Carry a whole classification model (``backbone``, ``pooling``,
-    ``head`` sub-trees of a ``torchok_tpu`` task's params and, where it has
-    them, batch_stats) into the state_dict of the port's
-    ``ClassificationModel``."""
+    """Carry a whole classification or segmentation model (the ``backbone``,
+    ``neck``, ``pooling`` and ``head`` sub-trees it has of a ``torchok_tpu``
+    task's params and, where it has them, batch_stats) into the state_dict
+    of the port's ``ClassificationModel`` or ``SegmentationModel``."""
     out: Dict[str, np.ndarray] = {}
     for tree in _collections(variables).values():
         for part, sub in tree.items():
@@ -249,7 +283,7 @@ def task_flax_to_state_dict(backbone_name: str,
 def task_name_map(backbone_name: str, variables: Mapping[str, Any],
                   collection: str = "params") -> Dict[str, Tuple[str, ...]]:
     """Port ``state_dict`` key -> path of the same leaf in one collection of
-    a classification task's Flax variables (``("backbone",
+    a classification or segmentation task's Flax variables (``("backbone",
     "layers_0_blocks_0", ...)``)."""
     out: Dict[str, Tuple[str, ...]] = {}
     for part, tree in _collections(variables).get(collection, {}).items():
