@@ -155,7 +155,23 @@
      each epoch, train and eval img/s, peak memory, and the last
      validation's JaccardIndex recounted in numpy from the logits and labels
      the meter was given (``witness_jaccard``, to 1e-9); 0 hand-written
-     launches.
+     launches;
+   * the detection north star ``configs/detection_toy_fcos.yaml``
+     (``FCOS_RECIPE``) at its short budget (8 epochs) from image files: the
+     toy set of ``tools/gen_toy_detection.py`` written first without cv2 or
+     pandas (``write_toy_detection``: the same draws, ``paint_rectangle``,
+     a zlib PNG writer, a csv module ``ann.csv``), then resnet18 + FPN +
+     FCOSHead at 96x96, bs 32, f32, the HorizontalFlip on the host:
+     valid/map50 >= 0.9772 - 0.05 at step 496, map50 by epoch, and the last
+     validation's map50 recounted in numpy from the padded arrays the meter
+     was given (``witness_map50``, to 1e-9); 0 hand-written launches;
+   * the model of ``configs/detection/fcos_resnet50_coco.yaml`` at full
+     width (``fcos_r50_config``: swsl_resnet50, FPN 256 from level 1 with
+     two extra convs, FCOSHead of 80 classes, strides 8 to 128, nms_pre
+     1000, max_per_img 100) on synthetic 400x672 PNGs, bs 8, bf16: 8 SGD
+     steps with gradient clipping and one validation with MMDetectionMAP,
+     the named parameters moved, then its f32 head outputs on the card
+     within 1e-3 of the CPU's at every level; 0 hand-written launches.
 6. Prints ``{"kernels": [...]}`` (K1 to K9; K1/K2's times are summed over
    one swinv2_tiny_window8 forward or backward, as before the other windows ran, the K3 to K5 times
    over one gcvit_tiny forward or backward, K6's over one swinv2_tiny forward,
@@ -462,6 +478,248 @@ def segmentation_config(log_dir: str) -> dict:
     """The segmentation recipe with the short budget's overrides, logging
     under ``log_dir``."""
     return _with_overrides(SEGMENTATION_RECIPE, SEGMENTATION_OVERRIDES, log_dir)
+
+
+def _fcos_loss(name, tag, mapping, **params):
+    loss = {"name": name, "tag": tag, "mapping": mapping}
+    return {**loss, "params": params} if params else loss
+
+
+# the three losses and their mappings of both FCOS recipes
+FCOS_LOSSES = [
+    _fcos_loss("MMFocalLoss", "loss_cls", {"pred": "flatten_cls_scores",
+                                           "target": "flatten_labels", "avg_factor": "num_pos"},
+               use_sigmoid=True, gamma=2.0, alpha=0.25),
+    _fcos_loss("MMIoULoss", "loss_bbox", {"pred": "pos_decoded_bbox_preds",
+                                          "target": "pos_decoded_target_preds",
+                                          "weight": "pos_centerness_targets",
+                                          "avg_factor": "centerness_denorm"}),
+    _fcos_loss("MMCrossEntropyLoss", "loss_centerness", {"cls_score": "pos_centerness",
+                                                         "label": "pos_centerness_targets",
+                                                         "avg_factor": "num_pos"},
+               use_sigmoid=True),
+]
+
+
+def _toydet_data(split, train):
+    dataset = {"name": "DetectionDataset",
+               "params": {"data_folder": f"${{oc.env:HOME}}/.cache/torchok_tpu/toydet/{split}",
+                          "annotation_path": "ann.csv", "bbox_format": "coco", "max_boxes": 4,
+                          "input_dtype": "float32"},
+               "transform": [{"name": "Normalize"}, {"name": "ToTensorV2"}]}
+    loader = {"batch_size": 32, "num_workers": 4}
+    if train:
+        dataset["augment"] = [{"name": "HorizontalFlip"}]
+        loader.update(drop_last=True, shuffle=True)
+    return [{"dataloader": loader, "dataset": dataset}]
+
+
+# configs/detection_toy_fcos.yaml, the detection north star (a CPU test holds
+# the two equal)
+FCOS_RECIPE = {
+    "task": {"name": "SingleStageDetectionTask",
+             "params": {"backbone_name": "resnet18",
+                        "backbone_params": {"pretrained": False, "in_channels": 3},
+                        "num_scales": 3, "neck_name": "FPN",
+                        "neck_params": {"out_channels": 64, "num_outs": 3},
+                        "head_name": "FCOSHead",
+                        "head_params": {"num_classes": 2, "strides": [8, 16, 32],
+                                        "feat_channels": 64, "stacked_convs": 2,
+                                        "test_cfg": {"nms_pre": 100, "score_thr": 0.05,
+                                                     "nms": {"iou_threshold": 0.6},
+                                                     "max_per_img": 10}},
+                        "inputs": [{"shape": [3, 96, 96], "dtype": "float32"}]}},
+    "joint_loss": {"normalize_weights": False, "losses": copy.deepcopy(FCOS_LOSSES)},
+    "optimization": [{"optimizer": {"name": "SGD", "params": {"lr": 0.01, "momentum": 0.9}},
+                      "scheduler": {"name": "CosineAnnealingLR", "params": {"T_max": 20}}}],
+    "data": {"TRAIN": _toydet_data("train", True), "VALID": _toydet_data("valid", False)},
+    "trainer": {"max_epochs": 20, "precision": 32, "num_sanity_val_steps": 0},
+    "seed_params": {"seed": 7},
+    "logger": {"log_dir": "${oc.env:HOME}/.cache/torchok_tpu/toydet/logs",
+               "experiment_name": "fcos_resnet18",
+               "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}", "name": "CSVLogger"},
+    "callbacks": [{"name": "FinalizeLogger"}],
+    "metrics": [{"name": "MMDetectionMAP", "tag": "map50",
+                 "params": {"iou_thr": 0.5, "num_classes": 2},
+                 "mapping": {"preds": "prediction", "target": "target"}, "phases": ["VALID"]}],
+}
+# the short budget of tools/north_star_baselines.json ("fcos"), held one-sided
+# to valid/map50 >= 0.9772 - 0.05 as tools/check_north_stars.py does
+FCOS_OVERRIDES = ["trainer.max_epochs=8"]
+FCOS_REFERENCE = 0.9772
+FCOS_TOLERANCE = 0.05
+# tools/gen_toy_detection.py's two splits: (split, images, seed)
+TOYDET_SPLITS = (("train", 2000, 1), ("valid", 400, 2))
+# drop_last: 2000 // 32 = 62 steps an epoch
+FCOS_STEPS = 8 * 62
+
+
+def fcos_config(data_root: str, log_dir: str) -> dict:
+    """The FCOS recipe with the short budget's overrides, reading the toy
+    set under ``data_root`` and logging under ``log_dir``."""
+    overrides = FCOS_OVERRIDES + [f"data.{phase}.0.dataset.params.data_folder="
+                                  f"{os.path.join(data_root, split)}"
+                                  for phase, split in (("TRAIN", "train"), ("VALID", "valid"))]
+    return _with_overrides(FCOS_RECIPE, overrides, log_dir)
+
+
+def paint_rectangle(img, x0, y0, x1, y1, value, thickness):
+    """``cv2.rectangle(img, (x0, y0), (x1, y1), (value,) * 3, thickness)`` of
+    OpenCV's default 8-connected line, for the two thicknesses the toy set
+    draws: -1 fills the corners' box inclusively; 3 draws each edge 5 pixels
+    wide (2 either side) with the outer corners rounded to a radius-2
+    disc, as cv2 draws a thick line's round caps."""
+    import numpy as np
+    h, w = img.shape[:2]
+    ys, xs = np.ogrid[:h, :w]
+    inside = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    if thickness == -1:
+        mask = inside
+    elif thickness == 3:
+        over_x = np.maximum(np.maximum(x0 - xs, xs - x1), 0)
+        over_y = np.maximum(np.maximum(y0 - ys, ys - y1), 0)
+        hole = (xs > x0 + 2) & (xs < x1 - 2) & (ys > y0 + 2) & (ys < y1 - 2)
+        mask = (over_x ** 2 + over_y ** 2 <= 4) & ~hole
+    else:
+        raise ValueError(f"thickness {thickness}: only -1 and 3 are drawn")
+    img[mask] = value
+
+
+def write_toy_detection(root, split, n, seed):
+    """``tools/gen_toy_detection.py``'s ``gen(split, n, seed)`` without cv2 or
+    pandas: the same draws from ``np.random.default_rng(seed)``, filled
+    rectangles (class 0) and rings of thickness 3 (class 1) painted by
+    :func:`paint_rectangle`, each image written as cv2.imwrite writes it (the
+    array read as BGR) by a PNG writer on ``zlib``, and ``ann.csv`` with the
+    COCO boxes and labels as JSON lists. Returns the image count."""
+    import csv
+    import json
+    import numpy as np
+    from torchok_tpu_torch.native import encode_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        img = rng.integers(0, 70, size=(96, 96, 3), dtype=np.uint8)
+        boxes, labels = [], []
+        for _ in range(int(rng.integers(1, 4))):
+            w, h = int(rng.integers(16, 36)), int(rng.integers(16, 36))
+            x0 = int(rng.integers(2, 94 - w))
+            y0 = int(rng.integers(2, 94 - h))
+            cls = int(rng.integers(0, 2))
+            value = int(rng.integers(160, 255))
+            paint_rectangle(img, x0, y0, x0 + w, y0 + h, value, -1 if cls == 0 else 3)
+            boxes.append([x0, y0, w, h])
+            labels.append(cls)
+        name = f"{split}_{i}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(encode_png(img[..., ::-1]))
+        rows.append({"image_path": name, "bbox": json.dumps(boxes), "label": json.dumps(labels)})
+    with open(os.path.join(root, "ann.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["image_path", "bbox", "label"])
+        writer.writeheader()
+        writer.writerows(rows)
+    return n
+
+
+# configs/detection/fcos_resnet50_coco.yaml's model at full width on synthetic
+# 400x672 images (COCO waits for its files): pretrained off, no paramwise_cfg
+# (queue 1 item 13), no FitResize or PadIfNeeded (item 12: the images already
+# have the input size), one epoch of FCOS_R50_TRAIN images and one
+# validation over FCOS_R50_VALID
+FCOS_R50_SIZE = (400, 672)
+FCOS_R50_TRAIN, FCOS_R50_VALID = 64, 16
+FCOS_R50_STEPS = FCOS_R50_TRAIN // 8
+
+
+def _r50_data(root, train):
+    dataset = {"name": "DetectionDataset",
+               "params": {"data_folder": root, "annotation_path": "ann.csv",
+                          "bbox_format": "coco", "input_dtype": "float16",
+                          "bbox_dtype": "float32", "image_format": "rgb"},
+               "transform": [{"name": "Normalize"}, {"name": "ToTensorV2"}]}
+    if train:
+        dataset["augment"] = [{"name": "HorizontalFlip"}]
+    return [{"dataloader": {"batch_size": 8, "num_workers": 8, "drop_last": False,
+                            "shuffle": train},
+             "dataset": dataset}]
+
+
+def fcos_r50_config(data_root: str) -> dict:
+    return {
+        "task": {"name": "SingleStageDetectionTask",
+                 "params": {"backbone_name": "swsl_resnet50",
+                            "backbone_params": {"pretrained": False, "in_channels": 3},
+                            "num_scales": 4, "neck_name": "FPN",
+                            "neck_params": {"out_channels": 256, "start_level": 1,
+                                            "add_extra_convs": "on_output", "num_outs": 5,
+                                            "relu_before_extra_convs": True},
+                            "head_name": "FCOSHead",
+                            "head_params": {
+                                "num_classes": 80, "strides": [8, 16, 32, 64, 128],
+                                "feat_channels": 256, "stacked_convs": 4,
+                                "train_cfg": {"assigner": {"type": "MaxIoUAssigner",
+                                                           "pos_iou_thr": 0.5,
+                                                           "neg_iou_thr": 0.4, "min_pos_iou": 0,
+                                                           "ignore_iof_thr": -1}},
+                                "test_cfg": {"nms_pre": 1000, "min_bbox_size": 0,
+                                             "score_thr": 0.05,
+                                             "nms": {"type": "nms", "iou_threshold": 0.5},
+                                             "max_per_img": 100}},
+                            "inputs": [{"shape": [3, *FCOS_R50_SIZE], "dtype": "float16"}]}},
+        "joint_loss": {"normalize_weights": False,
+                       "losses": [{**loss, "weight": 1.0} for loss in FCOS_LOSSES]},
+        "optimization": [{"optimizer": {"name": "SGD",
+                                        "params": {"lr": 0.001, "momentum": 0.9,
+                                                   "weight_decay": 0.0001}},
+                          "scheduler": {"name": "MultiStepLR", "params": {"milestones": [16]}}}],
+        "data": {"TRAIN": _r50_data(os.path.join(data_root, "train"), True),
+                 "VALID": _r50_data(os.path.join(data_root, "valid"), False)},
+        "trainer": {"accelerator": "auto", "max_epochs": 1, "precision": 16,
+                    "gradient_clip_val": 35, "gradient_clip_algorithm": "norm",
+                    "num_sanity_val_steps": 0},
+        "seed_params": {"seed": 0},
+        "metrics": [{"name": "MMDetectionMAP", "tag": "MMDetMAP_50",
+                     "params": {"iou_thr": 0.5, "num_classes": 80},
+                     "mapping": {"preds": "prediction", "target": "target"},
+                     "phases": ["VALID"]}],
+    }
+
+
+def write_box_images(root, n, seed, size=FCOS_R50_SIZE, classes=80):
+    """``n`` synthetic PNGs of ``size`` with 1 to 12 filled boxes each, 12
+    to 640 pixels a side (every FCOS level's range gets boxes), on a blocky
+    background, and their ``ann.csv`` (COCO boxes, labels in [0, classes))."""
+    import csv
+    import json
+    import numpy as np
+    from torchok_tpu_torch.native import encode_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h, w = size
+    rows = []
+    for i in range(n):
+        img = np.repeat(np.repeat(rng.integers(0, 90, (h // 8, w // 8, 3), dtype=np.uint8),
+                                  8, 0), 8, 1)
+        boxes, labels = [], []
+        for _ in range(int(rng.integers(1, 13))):
+            bw, bh = (int(v) for v in np.exp(rng.uniform(np.log(12), np.log(640), 2)))
+            bw, bh = min(bw, w - 2), min(bh, h - 2)
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            cls = int(rng.integers(0, classes))
+            img[y0:y0 + bh, x0:x0 + bw] = (40 + 2 * cls, 200 - 2 * cls, 120 + cls)
+            boxes.append([x0, y0, bw, bh])
+            labels.append(cls)
+        name = f"{i}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(encode_png(img))
+        rows.append({"image_path": name, "bbox": json.dumps(boxes), "label": json.dumps(labels)})
+    with open(os.path.join(root, "ann.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["image_path", "bbox", "label"])
+        writer.writeheader()
+        writer.writerows(rows)
 
 
 TRAIN_STEPS = 10
@@ -2473,6 +2731,270 @@ def run_segmentation_recipe():
     print(f"segmentation recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
 
 
+def witness_map50(batches, num_classes, iou_thr=0.5):
+    """VOC-area mAP recounted in numpy from one validation's padded
+    ``(preds, target)`` batches (the arrays MMDetectionMAP was given):
+    detections of a class taken in descending score order (ties in image
+    order, then slot order), each paired with its image's GT of the highest
+    IoU, a true positive when that IoU reaches ``iou_thr`` and the GT is not
+    yet taken; AP the area under the precision envelope, recall and
+    precision in f32 as the meter's f32 counts give them; the mean over the
+    classes that have GT."""
+    import numpy as np
+    dets, gts = [], []
+    for preds, target in batches:
+        for b in range(preds["labels"].shape[0]):
+            keep = (preds["labels"][b] >= 0) & (preds["scores"][b] > 0)
+            dets.append((preds["bboxes"][b][keep].astype(np.float32), preds["scores"][b][keep],
+                         preds["labels"][b][keep]))
+            real = target["labels"][b] >= 0
+            gts.append((target["bboxes"][b][real].astype(np.float32), target["labels"][b][real]))
+    aps = []
+    for cls in range(num_classes):
+        n_gt = sum(int((labels == cls).sum()) for _, labels in gts)
+        if n_gt == 0:
+            continue
+        entries = [(img, j) for img, (_, _, labels) in enumerate(dets)
+                   for j in np.flatnonzero(labels == cls)]
+        scores = np.array([dets[img][1][j] for img, j in entries], np.float32)
+        taken = [np.zeros(int((labels == cls).sum()), bool) for _, labels in gts]
+        tp = np.zeros(len(entries))
+        for k in np.argsort(-scores, kind="stable"):
+            img, j = entries[k]
+            truth = gts[img][0][gts[img][1] == cls]
+            if not len(truth):
+                continue
+            box = dets[img][0][j]
+            wh = np.clip(np.minimum(box[2:], truth[:, 2:]) - np.maximum(box[:2], truth[:, :2]),
+                         0, None)
+            inter = wh[:, 0] * wh[:, 1]
+            union = (np.clip(box[2] - box[0], 0, None) * np.clip(box[3] - box[1], 0, None)
+                     + np.clip(truth[:, 2] - truth[:, 0], 0, None)
+                     * np.clip(truth[:, 3] - truth[:, 1], 0, None) - inter)
+            iou = inter / np.maximum(union, 1e-9)
+            best = int(np.argmax(iou))
+            if iou[best] >= iou_thr and not taken[img][best]:
+                taken[img][best] = True
+                tp[k] = 1.0
+        order = np.argsort(-scores, kind="stable")
+        hit = tp[order] == 1.0
+        # recall and precision in f32, as the meter's f32 hit counts give them
+        hits = np.cumsum(hit).astype(np.float32)
+        recall = hits / np.float32(n_gt)
+        precision = hits / np.arange(1, len(order) + 1, dtype=np.float32)
+        envelope = np.maximum.accumulate(precision[::-1])[::-1].astype(np.float64)
+        # each true positive raises recall by one step, at the envelope's height
+        steps = np.diff(np.concatenate([[0.0], recall.astype(np.float64)]))
+        aps.append(float(np.sum(steps[hit] * envelope[hit])))
+    return float(np.mean(aps)) if aps else 0.0
+
+
+def capture_metric_inputs(name):
+    """Patch metric ``name``'s update and compute so each compute leaves the
+    host copies of the ``(preds, target)`` batches it was given since the
+    last one in the returned dict's ``"last"``; the returned ``restore()``
+    undoes the patch."""
+    import numpy as np
+    from torchok_tpu_torch.constructor import METRICS
+    meter = METRICS.get(name)
+    update, compute, seen, kept = meter.update, meter.compute, [], {}
+
+    def host(d):
+        return {k: np.asarray(v.detach().cpu().numpy()) for k, v in d.items()}
+
+    def keep_inputs(self, state, preds, target, **kwargs):
+        seen.append((host(preds), host(target)))
+        return update(self, state, preds=preds, target=target, **kwargs)
+
+    def keep_last(self, state):
+        kept["last"] = list(seen)
+        seen.clear()
+        return compute(self, state)
+
+    def restore():
+        meter.update, meter.compute = update, compute
+
+    meter.update, meter.compute = keep_inputs, keep_last
+    return kept, restore
+
+
+def run_fcos_recipe():
+    """``configs/detection_toy_fcos.yaml`` at its short budget (8 epochs)
+    through ``run(..., "train")`` as a user runs it, from image files on
+    disk: the toy set written first as ``tools/gen_toy_detection.py`` writes
+    it (:func:`write_toy_detection`), then resnet18 + FPN + FCOSHead at
+    96x96, f32, 4 loader threads, the host HorizontalFlip, CSVLogger,
+    FinalizeLogger. Checks the reference's valid/map50 floor, the step
+    count, map50 after each epoch, and the last validation's map50 recounted
+    in numpy (``witness_map50``) from the padded arrays MMDetectionMAP was
+    given, to 1e-9. The JAX ResNet, FPN, FCOS head, losses, NMS and mAP
+    reach no Pallas kernel, so every hand-written counter stays at 0."""
+    import csv
+    import tempfile
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="toydet_") as tmp:
+        images = sum(write_toy_detection(os.path.join(tmp, split), split, n, seed)
+                     for split, n, seed in TOYDET_SPLITS)
+        written = time.perf_counter() - start
+        kept, restore = capture_metric_inputs("MMDetectionMAP")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        try:
+            trainer, logs = run(fcos_config(tmp, os.path.join(tmp, "logs")), "train")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        require_launches("fcos recipe train", launch_counts(), {})
+        peak = torch.cuda.max_memory_allocated()
+        stats, evals = trainer.last_fit, trainer.last_eval
+        map50 = logs.get("valid/map50", float("nan"))
+        floor = FCOS_REFERENCE - FCOS_TOLERANCE
+        with open(os.path.join(trainer.logger.log_dir, "metrics.csv"), newline="") as f:
+            epochs = [float(r["valid/map50"]) for r in csv.DictReader(f) if r.get("valid/map50")]
+        print(f"fcos recipe (resnet18 + FPN + FCOSHead on the toy set, {images} PNGs written in "
+              f"{written:.2f} s, short budget): valid/map50={map50:.6f} at global_step "
+              f"{trainer.global_step} (the reference's short budget {FCOS_REFERENCE}, floor "
+              f"{floor:.4f}); by epoch {[round(v, 6) for v in epochs]}; smoke train img/s "
+              f"{stats['images'] / stats['seconds']:.2f} (host clock, first fetch to each "
+              f"epoch's loss read-back, {stats['steps']} steps, {stats['images']} images in "
+              f"{stats['seconds']:.3f} s, bs32, f32, decoded from disk); eval img/s "
+              f"{evals['images'] / evals['seconds']:.2f} (the last validation, {evals['images']} "
+              f"images in {evals['seconds']:.3f} s, decode + NMS + the metric's host copy); "
+              f"peak device memory {peak / 2**20:.1f} MiB; 0 hand-written launches on "
+              f"{card_line()}", flush=True)
+        if not map50 >= floor:
+            fail(f"fcos recipe: valid/map50 {map50:.4f} below {floor:.4f}")
+        if trainer.global_step != FCOS_STEPS or stats["steps"] != FCOS_STEPS:
+            fail(f"fcos recipe: {trainer.global_step} steps ({stats['steps']} run), expected "
+                 f"{FCOS_STEPS}")
+        if len(epochs) != 8 or epochs[-1] != map50:
+            fail(f"fcos recipe: metrics.csv holds valid/map50 {epochs}, expected 8 epochs "
+                 f"ending at {map50}")
+        batches = kept["last"]
+        if sum(t["labels"].shape[0] for _, t in batches) != TOYDET_SPLITS[1][1]:
+            fail(f"fcos recipe: the last validation gave MMDetectionMAP "
+                 f"{sum(t['labels'].shape[0] for _, t in batches)} images, expected "
+                 f"{TOYDET_SPLITS[1][1]}")
+        witness = witness_map50(batches, FCOS_RECIPE["metrics"][0]["params"]["num_classes"])
+        print(f"fcos recipe: valid/map50 recounted in numpy from the last validation's padded "
+              f"arrays {witness:.12f} against the meter's {map50:.12f} (tol 1e-9)", flush=True)
+        if not abs(witness - map50) <= 1e-9:
+            fail(f"fcos recipe: valid/map50 {map50} differs from its numpy witness {witness}")
+        with open(os.path.join(trainer.logger.log_dir, "status.txt")) as f:
+            status = f.read()
+        if status != "success":
+            fail(f"fcos recipe: status.txt reads {status!r}")
+    print(f"fcos recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+FCOS_R50_MUST_MOVE = ("backbone.layer1.0.conv1.weight", "backbone.layer4.2.bn3.weight",
+                      "neck.lateral_convs.0.conv.weight", "neck.fpn_convs.4.conv.weight",
+                      "bbox_head.cls_convs.3.gn.weight", "bbox_head.conv_cls.bias",
+                      "bbox_head.scales.0.scale")
+
+
+def run_fcos_full_width():
+    """The model of ``configs/detection/fcos_resnet50_coco.yaml`` at full
+    width (``fcos_r50_config``: swsl_resnet50, FPN 256 from level 1 with two
+    extra convs on the outputs, FCOSHead of 80 classes, 4 stacked convs,
+    strides 8 to 128, nms_pre 1000, max_per_img 100; 400x672, bs 8, bf16,
+    SGD with gradient clipping) on synthetic PNGs written at 400x672:
+    FCOS_R50_STEPS train steps and one validation with MMDetectionMAP through
+    ``run``, the named parameters moved, every parameter finite; then the
+    trained model in f32 on two validation images, card against CPU, over
+    every raw head output (each level's class logits, box distances and
+    centerness), within 1e-3 of each output's largest magnitude. 0
+    hand-written launches."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.engine.callbacks import Callback
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.initial, self.epochs = {}, []
+
+        def on_fit_start(self, trainer, task):
+            self.initial = {k: v.detach().clone()
+                            for k, v in trainer.state.model.state_dict().items()}
+
+        def on_epoch_end(self, trainer, task, logs):
+            self.epochs.append(dict(logs))
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fcos_r50_") as tmp:
+        write_box_images(os.path.join(tmp, "train"), FCOS_R50_TRAIN, 1)
+        write_box_images(os.path.join(tmp, "valid"), FCOS_R50_VALID, 2)
+        written = time.perf_counter() - start
+        config = fcos_r50_config(tmp)
+        recorder = Recorder()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        trainer, logs = run(config, "train", [recorder])
+        torch.cuda.synchronize()
+        require_launches("fcos_r50 train", launch_counts(), {})
+        peak = torch.cuda.max_memory_allocated()
+        stats, evals = trainer.last_fit, trainer.last_eval
+        print(f"fcos_r50 (swsl_resnet50 + FPN 256 + FCOSHead 80 classes, {FCOS_R50_SIZE[0]}x"
+              f"{FCOS_R50_SIZE[1]}, bs8 bf16, {FCOS_R50_TRAIN + FCOS_R50_VALID} PNGs written in "
+              f"{written:.2f} s): train {stats['steps']} steps, {stats['images']} images in "
+              f"{stats['seconds']:.3f} s = {stats['images'] / stats['seconds']:.2f} img/s (a "
+              f"smoke reading incl. the first steps' cuDNN plans, host clock, decoded from disk); "
+              f"eval {evals['images']} images in {evals['seconds']:.3f} s = "
+              f"{evals['images'] / evals['seconds']:.2f} img/s (decode, nms_pre 1000 a level, "
+              f"NMS to 100, the metric's host copy); peak device memory {peak / 2**20:.1f} MiB; "
+              f"logs {logs}; 0 hand-written launches on {card_line()}", flush=True)
+        if stats["steps"] != FCOS_R50_STEPS:
+            fail(f"fcos_r50: {stats['steps']} train steps, expected {FCOS_R50_STEPS}")
+        for key in ("train/loss", "valid/loss", "valid/MMDetMAP_50", "valid/loss_bbox"):
+            if not math.isfinite(logs.get(key, float("nan"))):
+                fail(f"fcos_r50: {key} missing or not finite in {logs}")
+        if not 0.0 <= logs["valid/MMDetMAP_50"] <= 1.0:
+            fail(f"fcos_r50: valid/MMDetMAP_50 {logs['valid/MMDetMAP_50']} outside [0, 1]")
+        state = trainer.state.model.state_dict()
+        for name, value in state.items():
+            if not bool(torch.isfinite(value).all().item()):
+                fail(f"fcos_r50 train: {name} is not finite")
+        still = [k for k in FCOS_R50_MUST_MOVE if torch.equal(state[k], recorder.initial[k])]
+        if still:
+            fail(f"fcos_r50 train: parameters that never changed: {still}")
+
+        # f32 reference: the trained model on two validation images, the
+        # card (cuDNN, TF32 off) against the CPU, every raw head output
+        dataset = trainer.task.val_dataloader()[0].dataset
+        images = np.stack([dataset[i]["image"] for i in range(2)])
+        x = torch.from_numpy(images).float().permute(0, 3, 1, 2).contiguous()
+        x = (x / 255.0 - 0.45) / 0.225
+        model = trainer.state.model.float().eval()
+        with torch.inference_mode():
+            feats = model.backbone.forward_features(x.cuda())[-model.num_scales:]
+            on_card = [[o.cpu() for o in level] for level in model.bbox_head(model.neck(feats))]
+            model = model.cpu()
+            feats = model.backbone.forward_features(x)[-model.num_scales:]
+            on_cpu = model.bbox_head(model.neck(feats))
+        worst = 0.0
+        for name, card_levels, cpu_levels in zip(("cls", "bbox", "centerness"), on_card, on_cpu):
+            for i, (a, b) in enumerate(zip(card_levels, cpu_levels)):
+                err = ((a - b).abs().max() / b.abs().max()).item()
+                worst = max(worst, err)
+                print(f"fcos_r50 reference (f32, 2 images, card vs CPU): {name} level {i} "
+                      f"{tuple(b.shape)} max_abs_err / max|out| = {err:.3e} (tol 1e-3), "
+                      f"max|out| {b.abs().max().item():.3e}", flush=True)
+        if not worst <= 1e-3:
+            fail(f"fcos_r50: head outputs on the card differ from the CPU run by {worst:.3e} "
+                 "of their largest magnitude")
+    print(f"fcos_r50 phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def unzero_and_calibrate(model, images):
     """HRNet's blocks at unit last-norm scale (``unzero_last_norms``) and its
     norms at the images' statistics (``calibrate_norms``): unit scales alone
@@ -2701,6 +3223,8 @@ def main() -> None:
     check_knn_index()
     run_arcface_recipe()
     run_segmentation_recipe()
+    run_fcos_recipe()
+    run_fcos_full_width()
 
     print(json.dumps({"kernels": list(all_records)}), flush=True)
     print(f"chip_smoke total: {time.perf_counter() - script_start:.1f} s", flush=True)

@@ -10,6 +10,7 @@ hand-written kernel, so there is no kernel path to pick here.
 import copy
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +33,7 @@ from torchok_tpu.models.backbones import resnet as jax_resnet
 from torchok_tpu.models.modules.blocks.se import EcaModule as FlaxEca
 from torchok_tpu.models.modules.bricks.convbnact import ConvBnAct as FlaxConvBnAct
 from torchok_tpu.ops import image as jax_image
+from torchok_tpu.tasks.base import BaseTask as JaxBaseTask
 from torchok_tpu_torch.__main__ import run
 from torchok_tpu_torch.constructor import BACKBONES
 from torchok_tpu_torch.constructor.config import ConfigNode, load_config
@@ -146,6 +148,27 @@ def test_same_padding_is_xlas():
         ConvBnAct(4, 4, padding="CIRCULAR")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    """The JAX task's initial variables from one jitted init, which the
+    persistent compilation cache keeps (an eager init compiles each of its
+    primitives on its own and keeps none). The port starts from whatever the
+    JAX init gives."""
+    init = JaxBaseTask.init_variables
+    monkeypatch.setattr(JaxBaseTask, "init_variables", lambda self, rng, batch=None:
+                        jax.jit(lambda key: init(self, key, batch))(rng))
+
+
 # ---------------------------------------------------------------------------
 # the backbone
 # ---------------------------------------------------------------------------
@@ -185,7 +208,14 @@ PYRAMIDS = {
     "senet154": ("senet154", ONE),                     # 3x3 downsample, reduce_first
     "space_to_depth": ("resnet18", dict(ONE, space_to_depth_stem=True)),
     "output_stride_8": ("resnet50", dict(ONE, output_stride=8)),   # dilated stages
+    # odd stages: 80x112 -> 40x56 -> 20x28 -> 10x14 -> 5x7 -> 3x4, so the
+    # stem pool and the stride-2 3x3 and 1x1 convs take odd maps, as
+    # FCOS-ResNet-50's 400x672 does (25x42 -> 13x21). An avg_down shortcut
+    # (resnet26d) cannot: the JAX package's pool floors 5x7 to 2x3 where the
+    # stride-2 conv gives 3x4, and the port's raises the same way.
+    "resnet50_odd": ("resnet50", ONE),
 }
+SIZES = {"resnet50_odd": (80, 112)}
 
 
 @pytest.fixture(scope="module", params=list(PYRAMIDS))
@@ -197,12 +227,12 @@ def models(request):
     sd = flax_to_state_dict(name, variables)
     assert sorted(sd) == sorted(port.state_dict())
     port.load_state_dict(_to_torch(sd), strict=True)
-    return name, flax_model, variables, port
+    return name, flax_model, variables, port, SIZES.get(request.param, (64, 64))
 
 
 def test_feature_pyramid_matches_flax(models):
-    name, flax_model, variables, port = models
-    x = np.random.default_rng(0).normal(size=(4, 64, 64, 3)).astype(np.float32)
+    name, flax_model, variables, port, size = models
+    x = np.random.default_rng(0).normal(size=(4, *size, 3)).astype(np.float32)
     ref = flax_model.apply(variables, jnp.asarray(x), method=flax_model.forward_features)
     before = dict(LAUNCHES)
     with torch.no_grad():
@@ -222,8 +252,8 @@ def test_feature_pyramid_matches_flax(models):
 
 
 def test_train_mode_output_and_running_statistics_match_flax(models):
-    name, flax_model, variables, port = models
-    x = np.random.default_rng(1).normal(size=(4, 64, 64, 3)).astype(np.float32)
+    name, flax_model, variables, port, size = models
+    x = np.random.default_rng(1).normal(size=(4, *size, 3)).astype(np.float32)
     port = copy.deepcopy(port).train()
     if "batch_stats" not in variables:  # resnet50_gn: nothing to update
         assert not [k for k in port.state_dict() if "running" in k]
@@ -242,7 +272,7 @@ def test_train_mode_output_and_running_statistics_match_flax(models):
 
 
 def test_state_dict_round_trips_both_collections(models):
-    name, _, variables, port = models
+    name, _, variables, port, _ = models
     task_vars = {c: {"backbone": tree} for c, tree in variables.items()}
     sd = task_flax_to_state_dict(name, task_vars)
     assert sorted(sd) == sorted("backbone." + k for k in port.state_dict())
@@ -343,7 +373,10 @@ def test_init_weights_draws_the_jax_packages_law_from_the_generator():
     # Flax's default for the SE convs: LeCun normal over fan_in = 256
     assert first["layer1.0.se.fc1.weight"].std().item() == pytest.approx(256 ** -0.5, rel=0.1)
     flax_model = JAX_BACKBONES.get("seresnet50")(layers=(1, 1, 1, 1))
-    ref = flax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False)["params"]
+    # jitted: one compile, which the persistent compilation cache keeps
+    # (an eager init compiles each of its hundreds of ops on its own)
+    ref = jax.jit(lambda key: flax_model.init(key, jnp.zeros((1, 32, 32, 3)), train=False))(
+        jax.random.PRNGKey(0))["params"]
     assert not np.asarray(ref["layer1_0"]["bn3"]["scale"]).any()
     assert np.asarray(ref["conv1"]["kernel"]).std() == pytest.approx(w_std := (2 / 3136) ** 0.5,
                                                                      rel=0.05), w_std
@@ -521,10 +554,13 @@ def test_cli_trains_a_small_resnet_on_the_cpu(tmp_path):
                        backbone_params={"layers": [1, 1, 1, 1], "pretrained": False})
     cfg["trainer"]["accelerator"] = "gpu"  # the override below asks for the CPU
     (tmp_path / "small_resnet.yaml").write_text(json.dumps(cfg))  # JSON is valid YAML
+    # one intra-op thread: at this size more only contend for the cores with
+    # the other test workers
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, "-m", "torchok_tpu_torch", "-cp", str(tmp_path), "-cn", "small_resnet",
          "trainer.accelerator=cpu", "trainer.max_epochs=2"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("epoch ")]
     assert len(lines) == 2 and lines[1].startswith("epoch 1 | ")

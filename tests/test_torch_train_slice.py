@@ -24,6 +24,7 @@ from torchok_tpu.constructor.config import ConfigNode as JaxConfigNode
 from torchok_tpu.constructor.config_structure import merge_structured as jax_merge
 from torchok_tpu.constructor.runner import create_trainer as jax_create_trainer
 from torchok_tpu.engine.callbacks import Callback as JaxCallback
+from torchok_tpu.tasks.base import BaseTask as JaxBaseTask
 from torchok_tpu_torch.__main__ import run
 from torchok_tpu_torch.constructor import BACKBONES
 from torchok_tpu_torch.engine.callbacks import Callback
@@ -37,6 +38,40 @@ BACKBONE = dict(img_size=32, patch_size=4, window_size=4, embed_dim=16,
                 depths=[2, 2], num_heads=[2, 4], drop_path_rate=0.0, pretrained=False)
 _METRIC = {"params": {"task": "multiclass", "num_classes": 10},
            "mapping": {"preds": "prediction", "target": "target"}}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's fits: at these sizes more threads
+    only contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _persist_every_compile():
+    """The persistent compilation cache keeps every compile of the JAX
+    fits, not only those over half a second: a fit compiles some forty
+    executables, most of them small."""
+    least = jax.config.jax_persistent_cache_min_compile_time_secs
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    yield
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", least)
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    """The JAX task's initial variables from one jitted init. Eagerly, Flax
+    compiles each of the init's ~200 primitives on its own (20 s of the
+    first fit here), and the persistent compilation cache keeps none of
+    them; one jitted init is one compile, which it keeps. The port
+    starts from whatever the JAX init gives, so the comparisons are those
+    of an eager init."""
+    init = JaxBaseTask.init_variables
+    monkeypatch.setattr(JaxBaseTask, "init_variables", lambda self, rng, batch=None:
+                        jax.jit(lambda key: init(self, key, batch))(rng))
 
 
 def _data(num_samples, seed, shuffle=False, size=32):

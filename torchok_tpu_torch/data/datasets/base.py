@@ -14,14 +14,19 @@ depend on the loader's seed, the epoch and its index, and not on which
 loader thread runs it or when. ``torchok_tpu`` mixes the thread id into
 its per-thread streams instead, which no two runs share.
 
-Decoding image files (and with it OpenCV and Pillow, which the port will
-import only inside the decoding functions) comes with the file-backed
-datasets; the in-memory datasets here need neither.
+File-backed datasets read images through :meth:`ImageDataset._read_image`:
+PNG and JPEG by :mod:`torchok_tpu_torch.native` (no OpenCV or Pillow), then
+``_convert_image_format`` to the recipe's ``image_format`` with cv2's
+colour conversions written out in numpy.
+
+A dataset with ``has_bboxes`` (detection) keeps geometric transforms on the
+host, where they move the boxes with the image: only ops that leave the
+geometry alone join the device suffix.
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -44,19 +49,38 @@ def resolve_np_dtype(name: str) -> np.dtype:
     return np.dtype(_DTYPES.get(name, name))
 
 
+def gray_from_rgb(rgb: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(RGB2GRAY) of a uint8 image: the BT.601 weights in 15-bit
+    fixed point, rounded (equal to cv2 on all 2^24 colours)."""
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    return ((r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def _with_alpha(rgb: np.ndarray) -> np.ndarray:
+    return np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, rgb.dtype)], axis=-1)
+
+
 class ImageDataset(ABC):
     # fixed-size in-memory images: shape-bound device ops may run batched
     uniform_image_size = False
+    # samples carry boxes: geometric ops stay on the host (see the module doc)
+    has_bboxes = False
 
     def __init__(
             self,
             transform: Optional[Union[BaseTransform, Compose, list]],
             augment: Optional[Union[BaseTransform, Compose, list]] = None,
             input_dtype: str = "float32",
+            reader_library: str = "opencv",
+            image_format: str = "rgb",
+            rgba_layout_color: Union[int, Tuple[int, int, int]] = 0,
             test_mode: bool = False,
     ):
         self.test_mode = test_mode
         self.input_dtype = input_dtype
+        self.reader_library = reader_library
+        self.image_format = image_format
+        self.rgba_layout_color = rgba_layout_color
         self._host_seed: Optional[int] = None  # None: unseeded until seed()
         self.transform = self._ensure_compose(transform)
         self.augment = self._ensure_compose(augment)
@@ -66,7 +90,7 @@ class ImageDataset(ABC):
             if part is not None:
                 combined.extend(part.transforms)
         self._host_pipeline, device_suffix = Compose(combined, p=1.0).split_device_suffix(
-            uniform_shapes=self.uniform_image_size)
+            bbox_mode=self.has_bboxes, uniform_shapes=self.uniform_image_size)
         self.device_pipeline = DeviceTransformPipeline(device_suffix)
 
     @property
@@ -101,6 +125,70 @@ class ImageDataset(ABC):
             sample["image"] = np.asarray(sample["image"]).astype(
                 resolve_np_dtype(self.input_dtype))
         return sample
+
+    # ------------------------------ reading --------------------------------
+    def _read_image(self, image_path: str) -> np.ndarray:
+        """Decode one file (PNG -> RGBA, JPEG -> RGB) and convert it to the
+        dataset's ``image_format``."""
+        if self.reader_library == "pillow":
+            raise NotImplementedError("reader_library 'pillow' is not ported: the port reads "
+                                      "PNG and JPEG itself ('opencv', the default)")
+        if self.reader_library not in ("opencv", "native"):
+            raise ValueError(f"Unsupported reader library format `{self.reader_library}`")
+        from torchok_tpu_torch import native
+        return self._convert_image_format(native.decode_file(str(image_path)))
+
+    def _composite_over(self, rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+        if (alpha == 255).all():  # opaque: the blend below gives rgb exactly
+            return np.ascontiguousarray(rgb, dtype=np.uint8)
+        alpha = alpha / 255.0
+        out = np.clip(rgb * alpha + self.rgba_layout_color * (1 - alpha), 0, 255)
+        return out.astype("uint8")
+
+    def _convert_image_format(self, image: np.ndarray) -> np.ndarray:
+        """``torchok_tpu``'s conversion to ``image_format`` (rgb, rgba, bgr,
+        gray) from gray (HW), gray + alpha, RGB or RGBA: alpha composited
+        over ``rgba_layout_color`` where the format has none."""
+        fmt = self.image_format
+        gray = image if image.ndim == 2 else None
+        if image.ndim == 3 and image.shape[2] == 2:
+            gray = image[..., 0]
+        if fmt == "rgb":
+            if image.ndim == 2:
+                image = np.repeat(image[..., None], 3, axis=-1)
+            elif image.shape[2] == 4:
+                image = self._composite_over(image[..., :3], image[..., 3:4])
+            elif image.shape[2] == 2:
+                image = self._composite_over(np.repeat(gray[..., None], 3, -1), image[..., 1:2])
+        elif fmt == "rgba":
+            if image.ndim == 2:
+                image = _with_alpha(np.repeat(image[..., None], 3, axis=-1))
+            elif image.shape[2] == 3:
+                image = _with_alpha(image)
+            elif image.shape[2] == 2:
+                image = np.concatenate([np.repeat(gray[..., None], 3, -1), image[..., 1:2]], -1)
+        elif fmt == "bgr":
+            if image.ndim == 2:
+                image = np.repeat(image[..., None], 3, axis=-1)
+            elif image.shape[2] == 4:
+                image = self._composite_over(image[..., :3], image[..., 3:4])[..., ::-1]
+            elif image.shape[2] == 3:
+                image = image[..., ::-1]
+            elif image.shape[2] == 2:
+                image = self._composite_over(np.repeat(gray[..., None], 3, -1), image[..., 1:2])
+            image = np.ascontiguousarray(image)
+        elif fmt == "gray":
+            if image.ndim == 3 and image.shape[2] == 4:
+                image = self._composite_over(image[..., :3], image[..., 3:4])
+            if image.ndim == 3 and image.shape[2] == 3:
+                image = gray_from_rgb(image)
+            if image.ndim == 3 and image.shape[2] == 2:
+                image = image[..., 0]
+            if image.ndim == 2:
+                image = image[..., None]
+        else:
+            raise ValueError(f"Unsupported image format `{self.image_format}`")
+        return image
 
     # ------------------------------ contract -------------------------------
     @abstractmethod

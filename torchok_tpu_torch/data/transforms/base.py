@@ -8,7 +8,12 @@ torchok/data/transforms/__init__.py:24-116; port of
   torch tensors on the trainer's device, with randomness from a
   ``torch.Generator``;
 * ``Compose.split_device_suffix`` peels the maximal suffix of device-capable
-  ops, which the engine then runs batched on the device after collation;
+  ops, which the engine then runs batched on the device after collation; in
+  ``bbox_mode`` (detection) an op that moves pixels (``device_bbox_safe``
+  False, or geometric with no box handler) stays on the host, where
+  ``apply_to_bboxes`` moves the sample's pixel xyxy ``bboxes`` with it;
+* a geometric op without ``apply_to_bboxes`` raises on a sample that
+  carries boxes: passing them through unchanged would misalign them;
 * host randomness comes from the generator that :func:`sample_generator`
   sets for one sample's pass through the host pipeline (the dataset makes it
   from its seed and the sample's index), so what a sample draws does not
@@ -48,8 +53,15 @@ class BaseTransform:
     device_capable: bool = False
     # True for device ops that require all samples to share the input shape
     device_needs_uniform: bool = False
+    # False for device ops that move pixels (flips, crops, resizes): their
+    # apply_batch does not move boxes, so they stay on the host for datasets
+    # with bboxes
+    device_bbox_safe: bool = True
     # True when the op is deterministic (p is ignored / always applied)
     always_apply: bool = False
+    # True for ops that change the image geometry: they must override
+    # apply_to_bboxes to take a sample that carries boxes
+    geometric: bool = False
 
     def __init__(self, always_apply: bool = False, p: float = 0.5):
         self.p = 1.0 if (always_apply or self.always_apply) else float(p)
@@ -77,8 +89,20 @@ class BaseTransform:
                 out["image"] = self.apply(sample["image"], **params)
             if sample.get("mask") is not None:
                 out["mask"] = self.apply_to_mask(sample["mask"], **params)
+            if sample.get("bboxes") is not None:
+                if self.geometric and not self.handles_bboxes:
+                    raise NotImplementedError(
+                        f"{type(self).__name__} changes image geometry but has no bbox "
+                        "handler; it cannot be used in a pipeline that carries bboxes "
+                        "(detection datasets)")
+                out["bboxes"] = self.apply_to_bboxes(sample["bboxes"], sample["image"].shape,
+                                                     **params)
             return out
         return dict(sample)
+
+    @property
+    def handles_bboxes(self) -> bool:
+        return type(self).apply_to_bboxes is not BaseTransform.apply_to_bboxes
 
     def get_params(self, sample: Dict[str, Any]) -> Dict[str, Any]:
         return {}
@@ -88,6 +112,11 @@ class BaseTransform:
 
     def apply_to_mask(self, mask: np.ndarray, **params) -> np.ndarray:
         return mask
+
+    def apply_to_bboxes(self, bboxes: np.ndarray, image_shape, **params) -> np.ndarray:
+        """Pixel xyxy boxes (N, 4) of an image of ``image_shape`` (HWC) as
+        they lie after the op; a non-geometric op leaves them."""
+        return bboxes
 
     # ----------------------------- device path -----------------------------
     def apply_batch(self, batch: Dict[str, torch.Tensor],
@@ -124,12 +153,18 @@ class Compose(BaseTransform):
             sample = t(**sample)
         return sample
 
-    def split_device_suffix(self, uniform_shapes: bool = False
+    def split_device_suffix(self, bbox_mode: bool = False, uniform_shapes: bool = False
                             ) -> Tuple["Compose", List[BaseTransform]]:
         """Split into (host prefix, device-capable suffix); ops that need
-        uniform shapes move to the device only for uniform-size datasets."""
+        uniform shapes move to the device only for uniform-size datasets,
+        and in ``bbox_mode`` only ops that leave the geometry alone move."""
         def ok(t):
-            return t.device_capable and (uniform_shapes or not t.device_needs_uniform)
+            # a geometric op with no box handler stays on the host whatever
+            # its flag: there it raises, on the device it would warp pixels
+            # under boxes left where they were
+            bbox_ok = t.device_bbox_safe and not (t.geometric and not t.handles_bboxes)
+            return (t.device_capable and (not bbox_mode or bbox_ok)
+                    and (uniform_shapes or not t.device_needs_uniform))
         split = len(self.transforms)
         while split > 0 and ok(self.transforms[split - 1]):
             split -= 1

@@ -80,12 +80,19 @@ class HorizontalFlip(BaseTransform):
     on the device per sample of the batch from the trainer's generator."""
 
     device_capable = True
+    geometric = True
+    device_bbox_safe = False  # apply_batch does not flip boxes
 
     def apply(self, image, **params):
         return np.ascontiguousarray(image[:, ::-1])
 
     def apply_to_mask(self, mask, **params):
         return np.ascontiguousarray(mask[:, ::-1])
+
+    def apply_to_bboxes(self, bboxes, image_shape, **params):
+        b = np.asarray(bboxes, np.float32).reshape(-1, 4).copy()
+        b[:, [0, 2]] = image_shape[1] - b[:, [2, 0]]
+        return b
 
     def apply_batch(self, batch, generator):
         img = batch["image"]

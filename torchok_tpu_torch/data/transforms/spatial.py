@@ -1,6 +1,9 @@
 """Spatial transforms (port of ``Resize``, ``CenterCrop`` and ``RandomCrop``
 of ``torchok_tpu.data.transforms.spatial``): numpy on the host, batched torch
-on the trainer's device.
+on the trainer's device. Each moves a sample's pixel xyxy boxes on the
+host (``apply_to_bboxes``: scaled, or shifted and clipped to the crop, rows
+kept so labels stay aligned); on the device none does, so none leaves the
+host for a dataset with boxes.
 
 The reference resizes with ``cv2.resize``; the port gives cv2's semantics
 without cv2: INTER_LINEAR samples at half-pixel centres with two taps and no
@@ -113,11 +116,20 @@ def crop_batch(batch: Dict[str, torch.Tensor], y0: torch.Tensor, x0: torch.Tenso
     return batch
 
 
+def _shift_clip_bboxes(bboxes, x0: int, y0: int, crop_w: int, crop_h: int) -> np.ndarray:
+    b = np.asarray(bboxes, np.float32).reshape(-1, 4).copy()
+    b[:, [0, 2]] = np.clip(b[:, [0, 2]] - x0, 0, crop_w)
+    b[:, [1, 3]] = np.clip(b[:, [1, 3]] - y0, 0, crop_h)
+    return b
+
+
 @TRANSFORMS.register_class
 class Resize(BaseTransform):
     always_apply = True
     device_capable = True
     device_needs_uniform = True  # batched resize needs one input shape
+    geometric = True
+    device_bbox_safe = False
 
     def __init__(self, height: int, width: int, interpolation: int = INTER_LINEAR,
                  always_apply: bool = False, p: float = 1.0, **_):
@@ -131,11 +143,19 @@ class Resize(BaseTransform):
     def apply_to_mask(self, mask, **params):
         return _resize(mask, self.height, self.width, INTER_NEAREST)
 
+    def apply_to_bboxes(self, bboxes, image_shape, **params):
+        h, w = image_shape[:2]
+        scale = np.array([self.width / w, self.height / h] * 2, np.float32)
+        return np.asarray(bboxes, np.float32) * scale
+
     def apply_batch(self, batch, generator):
         return _device_resize_to(batch, self.height, self.width, self.interpolation)
 
 
 class _CropBase(BaseTransform):
+    geometric = True
+    device_bbox_safe = False
+
     def __init__(self, height: int, width: int, always_apply: bool = False,
                  p: float = 1.0, **_):
         super().__init__(always_apply, p)
@@ -155,6 +175,11 @@ class _CropBase(BaseTransform):
 
     def apply_to_mask(self, mask, y0=0, x0=0, **params):
         return self._crop(mask, y0, x0)
+
+    def apply_to_bboxes(self, bboxes, image_shape, y0=0, x0=0, **params):
+        h, w = image_shape[:2]
+        return _shift_clip_bboxes(bboxes, x0, y0, min(self.width, w - x0),
+                                  min(self.height, h - y0))
 
 
 @TRANSFORMS.register_class

@@ -111,6 +111,23 @@ def _check_fit_ported(tp: ConfigNode) -> None:
             f"trainer.{name}={value!r} is not ported yet in fit (only {default!r} runs)")
 
 
+def _map_tensors(fn: Callable[[torch.Tensor], Any], value: Any) -> Any:
+    """``fn`` applied to every tensor of an output value: a tensor, or a
+    list, tuple or dict of them (a detection head's per-level maps, its
+    ``prediction`` dict); anything else as it is."""
+    if torch.is_tensor(value):
+        return fn(value)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_map_tensors(fn, v) for v in value)
+    if isinstance(value, dict):
+        return {k: _map_tensors(fn, v) for k, v in value.items()}
+    return value
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
 def resolve_device(accelerator: Optional[str]) -> torch.device:
     """trainer.accelerator -> torch.device; raises when the card is absent."""
     acc = str(accelerator or "auto").lower()
@@ -269,7 +286,7 @@ class Trainer:
                 for optimizer in state.optimizers:
                     optimizer.step()
                 model.zero_grad(set_to_none=True)
-            outputs = {k: v.detach() if torch.is_tensor(v) else v for k, v in outputs.items()}
+            outputs = {k: _map_tensors(torch.Tensor.detach, v) for k, v in outputs.items()}
             losses = {"loss": total.detach(), **{k: v.detach() for k, v in tagged.items()}}
             return outputs, losses
 
@@ -574,6 +591,5 @@ class Trainer:
                 if bidx >= n_batches:
                     break
                 outputs, _ = eval_step(batch)
-                results.append({k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-                                for k, v in outputs.items()})
+                results.append({k: _map_tensors(_host, v) for k, v in outputs.items()})
         return results

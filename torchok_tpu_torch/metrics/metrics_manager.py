@@ -17,6 +17,17 @@ from torchok_tpu_torch.constructor import METRICS
 from torchok_tpu_torch.constructor.config_structure import MetricParams, Phase
 
 
+def _device_of(values: Dict[str, Any]) -> torch.device:
+    """The device of the first tensor among ``values``, looking into the
+    dict-valued outputs (a detection task's ``prediction``/``target``)."""
+    for v in values.values():
+        if isinstance(v, dict):
+            v = next(iter(v.values()))
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return torch.device("cpu")
+
+
 class MetricWithUtils:
     def __init__(self, metric, mapping: Dict[str, str], log_name: str,
                  dataloader_idx: int):
@@ -42,8 +53,7 @@ class MetricWithUtils:
         if dataloader_idx == self.dataloader_idx:
             targeted = self.map_arguments(kwargs)
             if self.state is None:
-                device = next(iter(targeted.values())).device
-                self.state = self.metric.empty_state(device)
+                self.state = self.metric.empty_state(_device_of(targeted))
             self.state = self.metric.update(self.state, **targeted)
 
     def compute(self):

@@ -1,1 +1,1 @@
-from torchok_tpu_torch.tasks import classification, segmentation  # noqa: F401
+from torchok_tpu_torch.tasks import classification, detection, segmentation  # noqa: F401

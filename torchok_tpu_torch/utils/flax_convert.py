@@ -32,7 +32,12 @@ modules use the timm or reference key names.
   ``transition{n}.{n}.0.0``), ``stage2_0/branch_1_block_0`` ->
   ``stage2.0.branches.1.0``, ``fuse/fuse_1_0_0_conv`` ->
   ``fuse_layers.1.0.0.0`` and ``fuse/fuse_0_1_bn`` -> ``fuse_layers.0.1.1``;
-  the necks: ``downsample/conv``/``downsample/bn`` -> ``downsample.0``/``.1``).
+  the necks: ``downsample/conv``/``downsample/bn`` -> ``downsample.0``/``.1``;
+  the FPN: ``lateral_{i}`` -> ``lateral_convs.{i}.conv``, ``fpn_conv_{i}`` ->
+  ``fpn_convs.{i}.conv``, ``extra_conv_{i}`` -> ``fpn_convs.{n + i}.conv``
+  after its n laterals; the FCOS head (``bbox_head``): ``cls_conv_{i}``/
+  ``cls_gn_{i}`` -> ``cls_convs.{i}.conv``/``.gn``, the same for ``reg_``,
+  ``scale_{i}/scale`` -> ``scales.{i}.scale``: mmdet's names).
   Depthwise and 1x1 conv kernels take the same HWIO -> OIHW rule;
   ``relative_position_bias_table`` and ``gamma`` carry over as they are.
 
@@ -168,15 +173,44 @@ def _hrnet_path(parts: List[str]) -> List[str]:
     return out
 
 
+def _neck_path(n_laterals: int) -> Callable[[List[str]], List[str]]:
+    """A neck's paths: its Bottlenecks' shortcut projections as the ResNet
+    family names them, an FPN's convs as mmdet does (its extra convs after
+    its ``n_laterals`` output convs)."""
+    resnet = _resnet_path(False)
+
+    def mapper(parts: List[str]) -> List[str]:
+        out: List[str] = []
+        for p in resnet(parts):
+            if (m := re.fullmatch(r"(lateral|fpn_conv|extra_conv)_(\d+)", p)):
+                i = int(m[2]) + (n_laterals if m[1] == "extra_conv" else 0)
+                out += ["lateral_convs" if m[1] == "lateral" else "fpn_convs", str(i), "conv"]
+            else:
+                out.append(p)
+        return out
+
+    return mapper
+
+
+def _fcos_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for p in parts:
+        if (m := re.fullmatch(r"(cls|reg)_(conv|gn)_(\d+)", p)):
+            out += [f"{m[1]}_convs", m[3], m[2]]
+        elif (m := re.fullmatch(r"scale_(\d+)", p)):
+            out += ["scales", m[1]]
+        else:
+            out.append(p)
+    return out
+
+
 def _plain_path(parts: List[str]) -> List[str]:
     return list(parts)
 
 
 _FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
     (r"^hrnet", _hrnet_path),
-    # a neck (the task's "neck" part or a neck class): its Bottlenecks'
-    # shortcut projections as the ResNet family names them
-    (r"^(neck|\w+Neck)$", _resnet_path(False)),
+    (r"^bbox_head$", _fcos_path),
     (r"^swinv2", _swin_path),
     (r"^gcvit", _gcvit_path),
     (r"^davit", _davit_path),
@@ -185,7 +219,11 @@ _FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
 ]
 
 
-def _path_mapper(name: str) -> Callable[[List[str]], List[str]]:
+def _path_mapper(name: str, tree: Mapping[str, Any] = None) -> Callable[[List[str]], List[str]]:
+    """The path renames of module ``name`` (a registry name, a task part or
+    a class name), whose Flax sub-tree ``tree`` a neck's renames need."""
+    if re.match(r"^(neck|\w+Neck|FPN)$", name):
+        return _neck_path(sum(bool(re.fullmatch(r"lateral_\d+", k)) for k in (tree or {})))
     for pat, fn in _FAMILY_PATHS:
         if re.match(pat, name):
             return fn
@@ -237,7 +275,10 @@ def _value(leaf: Any) -> np.ndarray:
 
 
 def _key(mapper: Callable[[List[str]], List[str]], path: Tuple[str, ...], prefix: str) -> str:
-    return prefix + ".".join(mapper(list(path[:-1])) + [_LEAF.get(path[-1], path[-1])])
+    module = mapper(list(path[:-1]))
+    # mmcv's Scale keeps its parameter's own name
+    leaf = path[-1] if module[-2:-1] == ["scales"] else _LEAF.get(path[-1], path[-1])
+    return prefix + ".".join(module + [leaf])
 
 
 def _collections(variables: Mapping[str, Any]) -> Dict[str, Mapping[str, Any]]:
@@ -257,9 +298,9 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
     ``variables`` is ``{"params": ..., "batch_stats": ...}`` (the second
     optional) or the params tree itself; leaves may be numpy or anything
     ``np.asarray`` accepts."""
-    mapper = _path_mapper(name)
     out: Dict[str, np.ndarray] = {}
     for tree in _collections(variables).values():
+        mapper = _path_mapper(name, tree)
         for path, leaf in _leaves(tree):
             value = np.array(_torch_layout(path[-1], _value(leaf)), order="C")
             out[_key(mapper, path, prefix)] = value
@@ -268,10 +309,11 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
 
 def task_flax_to_state_dict(backbone_name: str,
                             variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Carry a whole classification or segmentation model (the ``backbone``,
-    ``neck``, ``pooling`` and ``head`` sub-trees it has of a ``torchok_tpu``
-    task's params and, where it has them, batch_stats) into the state_dict
-    of the port's ``ClassificationModel`` or ``SegmentationModel``."""
+    """Carry a whole classification, segmentation or detection model (the
+    ``backbone``, ``neck``, ``pooling``, ``head`` and ``bbox_head`` sub-trees
+    it has of a ``torchok_tpu`` task's params and, where it has them,
+    batch_stats) into the state_dict of the port's ``ClassificationModel``,
+    ``SegmentationModel`` or ``DetectionModel``."""
     out: Dict[str, np.ndarray] = {}
     for tree in _collections(variables).values():
         for part, sub in tree.items():
@@ -287,7 +329,7 @@ def task_name_map(backbone_name: str, variables: Mapping[str, Any],
     "layers_0_blocks_0", ...)``)."""
     out: Dict[str, Tuple[str, ...]] = {}
     for part, tree in _collections(variables).get(collection, {}).items():
-        mapper = _path_mapper(backbone_name if part == "backbone" else part)
+        mapper = _path_mapper(backbone_name if part == "backbone" else part, tree)
         for path, _ in _leaves(tree):
             out[_key(mapper, path, f"{part}.")] = (part,) + path
     return out
