@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -58,11 +58,15 @@ class DetectionDataset(ImageDataset):
         self.bbox_format = bbox_format
         self.min_area = min_area
         self.max_boxes = max_boxes
-        table = read_table(self.data_folder / annotation_path)
+        table = self._read_annotations(self.data_folder / annotation_path)
         self.paths = table[input_column]
         self.boxes = [_as_list(v) for v in table[bbox_column]]
         self.labels = [_as_list(v) for v in table[target_column]] \
             if target_column in table else None
+
+    def _read_annotations(self, path: Path) -> Dict[str, List]:
+        """Column name -> values of the annotation file at ``path``."""
+        return read_table(path)
 
     def __len__(self) -> int:
         return len(self.paths)

@@ -1,7 +1,14 @@
 """Prefetching data loader (port of ``torchok_tpu.data.loader.DataLoader``).
 
-* worker *threads*: the per-sample host work is numpy (and decode, later),
-  which releases the GIL; ``num_workers: 0`` loads synchronously;
+* worker *threads* by default: the per-sample host work is numpy and zlib;
+  ``num_workers: 0`` loads synchronously. With ``worker_processes`` (the
+  engine sets it on a card) the samples load in worker *processes* instead
+  (``forkserver``, the dataset pickled to each once): a host-bound step
+  launches its kernels from the main thread, and every worker thread that
+  waits for the GIL between its numpy calls stalls those launches (the toy
+  DETR recipe's step took twice as long beside four loader threads). Each
+  sample draws from ``(seed, index)`` alone, so both kinds give the same
+  batches;
 * batches are collated to numpy on the host; the engine-installed
   ``device_fn`` copies a batch to the trainer's device and runs the
   dataset's batched device transform suffix there;
@@ -12,14 +19,30 @@
 """
 from __future__ import annotations
 
+import multiprocessing
+import pickle
 import queue as queue_mod
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Executor, ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
 _SENTINEL = object()
+
+# the dataset of a worker process, unpickled once by _init_worker
+_WORKER_DATASET = None
+
+
+def _init_worker(payload: bytes) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = pickle.loads(payload)
+
+
+def _load_samples(host_seed: Optional[int], idxs: np.ndarray) -> List[Dict[str, Any]]:
+    """A worker process's samples, drawn with the parent's current host seed."""
+    _WORKER_DATASET._host_seed = host_seed
+    return [_WORKER_DATASET[int(i)] for i in idxs]
 
 
 def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -58,6 +81,9 @@ class DataLoader:
         # engine-installed: numpy host batch -> device batch with the
         # device transform suffix applied
         self.device_fn: Optional[Callable[[Dict[str, Any]], Any]] = None
+        # engine-set on a card: load in worker processes (module docstring)
+        self.worker_processes = False
+        self._process_pool: Optional[ProcessPoolExecutor] = None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -86,14 +112,38 @@ class DataLoader:
                 and getattr(self.dataset, "host_pipeline_empty", False)
                 and self.collate_fn is default_collate)
 
-    def _fetch(self, pool: Optional[ThreadPoolExecutor], idxs: np.ndarray) -> Dict[str, Any]:
+    def _fetch(self, pool: Optional[Executor], idxs: np.ndarray) -> Dict[str, Any]:
         if self._vectorized:
             return self.dataset.get_batch(idxs)
         if pool is None or len(idxs) < 2 * self.num_workers:
             return self.collate_fn([self.dataset[int(i)] for i in idxs])
         chunks = np.array_split(idxs, self.num_workers)
-        parts = list(pool.map(lambda c: [self.dataset[int(i)] for i in c], chunks))
+        if isinstance(pool, ProcessPoolExecutor):
+            seed = getattr(self.dataset, "_host_seed", None)
+            parts = list(pool.map(_load_samples, [seed] * len(chunks), chunks))
+        else:
+            parts = list(pool.map(lambda c: [self.dataset[int(i)] for i in c], chunks))
         return self.collate_fn([s for part in parts for s in part])
+
+    def _pool(self) -> Executor:
+        """A thread pool for this pass, or the loader's process pool, started
+        at its first pass and kept for the next ones."""
+        if not self.worker_processes:
+            return ThreadPoolExecutor(max_workers=self.num_workers)
+        if self._process_pool is None:
+            context = multiprocessing.get_context("forkserver")
+            # the server imports the package once; each worker forks from it
+            context.set_forkserver_preload(["torchok_tpu_torch.data.datasets"])
+            self._process_pool = ProcessPoolExecutor(
+                max_workers=self.num_workers, mp_context=context,
+                initializer=_init_worker, initargs=(pickle.dumps(self.dataset),))
+        return self._process_pool
+
+    def close(self) -> None:
+        """Stop the worker processes, if any."""
+        if self._process_pool is not None:
+            self._process_pool.shutdown(wait=True, cancel_futures=True)
+            self._process_pool = None
 
     def _to_device(self, host_batch: Dict[str, Any]) -> Any:
         if self.device_fn is None:
@@ -107,7 +157,7 @@ class DataLoader:
                 yield self._to_device(self._fetch(None, idxs))
             return
 
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        pool = None if self._vectorized else self._pool()
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch_factor)
         stop = threading.Event()
 
@@ -151,4 +201,5 @@ class DataLoader:
                 except queue_mod.Empty:
                     break
             t.join(timeout=5)
-            pool.shutdown(wait=False)
+            if isinstance(pool, ThreadPoolExecutor):
+                pool.shutdown(wait=False)

@@ -67,6 +67,14 @@ class BaseTransform:
         self.p = 1.0 if (always_apply or self.always_apply) else float(p)
         self._local = _threading.local()
 
+    def __getstate__(self) -> Dict[str, Any]:
+        # a worker process gets its own per-thread generators
+        return {k: v for k, v in self.__dict__.items() if k != "_local"}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._local = _threading.local()
+
     @property
     def rng(self) -> np.random.Generator:
         """The current sample's generator (:func:`sample_generator`), else a

@@ -1,9 +1,10 @@
-"""Spatial transforms (port of ``Resize``, ``CenterCrop`` and ``RandomCrop``
-of ``torchok_tpu.data.transforms.spatial``): numpy on the host, batched torch
-on the trainer's device. Each moves a sample's pixel xyxy boxes on the
-host (``apply_to_bboxes``: scaled, or shifted and clipped to the crop, rows
-kept so labels stay aligned); on the device none does, so none leaves the
-host for a dataset with boxes.
+"""Spatial transforms (port of ``Resize``, ``CenterCrop``, ``RandomCrop``,
+``FitResize`` and ``PadIfNeeded`` of ``torchok_tpu.data.transforms.spatial``):
+numpy on the host, batched torch on the trainer's device (the last two on the
+host only: their output size follows each image's own). Each moves a
+sample's pixel xyxy boxes on the host (``apply_to_bboxes``: scaled, or
+shifted and clipped to the crop, rows kept so labels stay aligned); on the
+device none does, so none leaves the host for a dataset with boxes.
 
 The reference resizes with ``cv2.resize``; the port gives cv2's semantics
 without cv2: INTER_LINEAR samples at half-pixel centres with two taps and no
@@ -14,8 +15,9 @@ path with ``F.interpolate(..., align_corners=False, antialias=False)``.
 """
 from __future__ import annotations
 
+from fractions import Fraction
 from functools import lru_cache
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +30,11 @@ from torchok_tpu_torch.ops.image import nearest_cv2_indices, resize_bilinear, re
 INTER_NEAREST = 0
 INTER_LINEAR = 1
 _PORTED_INTERPS = (INTER_NEAREST, INTER_LINEAR)
+# cv2's border modes 0 to 4 (CONSTANT, REPLICATE, REFLECT, WRAP, REFLECT_101)
+# as numpy pad modes
+BORDER_CONSTANT = 0
+BORDER_REFLECT_101 = 4
+_NUMPY_BORDERS = {0: "constant", 1: "edge", 2: "symmetric", 3: "wrap", 4: "reflect"}
 
 
 def _check_interpolation(interpolation: int) -> int:
@@ -226,3 +233,124 @@ class RandomCrop(_CropBase):
         y0 = torch.randint(0, h - self.height + 1, (n,), generator=generator, device=device)
         x0 = torch.randint(0, w - self.width + 1, (n,), generator=generator, device=device)
         return crop_batch(batch, y0, x0, self.height, self.width)
+
+
+def _scale_bboxes(bboxes, sx: float, sy: float) -> np.ndarray:
+    b = np.asarray(bboxes, np.float32).reshape(-1, 4).copy()
+    b[:, [0, 2]] *= sx
+    b[:, [1, 3]] *= sy
+    return b
+
+
+@TRANSFORMS.register_class
+class FitResize(BaseTransform):
+    """Aspect-preserving resize into ``max_height`` x ``max_width``: the side
+    that binds (an exact ``Fraction`` test of the aspect ratios) meets its
+    limit, the other is scaled by the same factor and rounded (Python's
+    ``round``). Host only."""
+
+    always_apply = True
+    geometric = True
+    device_bbox_safe = False
+
+    def __init__(self, max_height: int = 1024, max_width: int = 1024,
+                 interpolation: int = INTER_LINEAR, always_apply: bool = False,
+                 p: float = 1.0, **_):
+        super().__init__(always_apply, p)
+        self.max_height, self.max_width = max_height, max_width
+        self.interpolation = _check_interpolation(interpolation)
+        self.aspect_ratio = Fraction(max_height, max_width)
+
+    def _size(self, h: int, w: int) -> Tuple[int, int]:
+        s = self.max_height / h if Fraction(h, w) >= self.aspect_ratio else self.max_width / w
+        return max(1, round(h * s)), max(1, round(w * s))
+
+    def apply(self, image, **params):
+        return _resize(image, *self._size(*image.shape[:2]), self.interpolation)
+
+    def apply_to_mask(self, mask, **params):
+        return _resize(mask, *self._size(*mask.shape[:2]), INTER_NEAREST)
+
+    def apply_to_bboxes(self, bboxes, image_shape, **params):
+        h, w = image_shape[:2]
+        nh, nw = self._size(h, w)
+        return _scale_bboxes(bboxes, nw / w, nh / h)
+
+
+def _border_fill(value: Union[None, float, Sequence[float]], channels: Optional[int],
+                 dtype) -> Union[float, np.ndarray]:
+    """cv2's fill of a constant border: a scalar is ``Scalar(v, 0, 0, 0)``, so
+    it fills channel 0 of a multi-channel image and leaves the others at 0;
+    a sequence fills channel by channel; the result saturated to ``dtype``."""
+    seq = [] if value is None else (list(value) if isinstance(value, (list, tuple))
+                                    else [value])
+    if channels is None:
+        fill = np.array(seq[:1] or [0.0], np.float64)
+    else:
+        fill = np.zeros(channels, np.float64)
+        fill[:min(len(seq), channels)] = seq[:channels]
+    if np.issubdtype(dtype, np.integer):
+        return saturate_int(fill, dtype)
+    return fill.astype(dtype)
+
+
+def copy_make_border(arr: np.ndarray, top: int, bottom: int, left: int, right: int,
+                     border_mode: int, value=None) -> np.ndarray:
+    """``cv2.copyMakeBorder`` of an HWC or HW array: modes 0 to 4 as numpy
+    pads (``constant`` with cv2's fill, ``edge``, ``symmetric``, ``wrap``,
+    ``reflect``)."""
+    if border_mode not in _NUMPY_BORDERS:
+        raise NotImplementedError(f"border_mode={border_mode!r}: only cv2's modes 0 to 4 are "
+                                  "ported")
+    pads = ((top, bottom), (left, right)) + ((0, 0),) * (arr.ndim - 2)
+    if border_mode != BORDER_CONSTANT:
+        return np.pad(arr, pads, mode=_NUMPY_BORDERS[border_mode])
+    fill = _border_fill(value, arr.shape[2] if arr.ndim == 3 else None, arr.dtype)
+    out = np.empty((arr.shape[0] + top + bottom, arr.shape[1] + left + right) + arr.shape[2:],
+                   arr.dtype)
+    out[...] = fill
+    out[top:top + arr.shape[0], left:left + arr.shape[1]] = arr
+    return out
+
+
+@TRANSFORMS.register_class
+class PadIfNeeded(BaseTransform):
+    """Pad up to ``min_height`` x ``min_width``, the rows split ``ph // 2``
+    on top and the rest below (the columns likewise); ``mask_value`` fills a
+    constant border of the mask. Host only."""
+
+    always_apply = True
+    geometric = True
+    device_bbox_safe = False
+
+    def __init__(self, min_height: int = 1024, min_width: int = 1024,
+                 border_mode: int = BORDER_REFLECT_101, value=None, mask_value=None,
+                 always_apply: bool = False, p: float = 1.0, **_):
+        super().__init__(always_apply, p)
+        self.min_height, self.min_width = min_height, min_width
+        if border_mode not in _NUMPY_BORDERS:
+            raise NotImplementedError(f"border_mode={border_mode!r}: only cv2's modes 0 to 4 "
+                                      "are ported")
+        self.border_mode = border_mode
+        self.value = value
+        self.mask_value = mask_value
+
+    def _pads(self, h: int, w: int) -> Tuple[int, int, int, int]:
+        ph = max(self.min_height - h, 0)
+        pw = max(self.min_width - w, 0)
+        return ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
+
+    def apply(self, image, **params):
+        return copy_make_border(image, *self._pads(*image.shape[:2]), self.border_mode,
+                                self.value)
+
+    def apply_to_mask(self, mask, **params):
+        return copy_make_border(mask, *self._pads(*mask.shape[:2]), self.border_mode,
+                                self.mask_value)
+
+    def apply_to_bboxes(self, bboxes, image_shape, **params):
+        t, _, l, _ = self._pads(*image_shape[:2])
+        b = np.asarray(bboxes, np.float32).reshape(-1, 4).copy()
+        b[:, [0, 2]] += l
+        b[:, [1, 3]] += t
+        return b

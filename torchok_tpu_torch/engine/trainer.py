@@ -124,6 +124,12 @@ def _map_tensors(fn: Callable[[torch.Tensor], Any], value: Any) -> Any:
     return value
 
 
+def _close(loaders: Sequence) -> None:
+    """Stop the loaders' worker processes, if they started any."""
+    for loader in loaders:
+        loader.close()
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
@@ -226,6 +232,9 @@ class Trainer:
     def _install_device_fns(self, loaders: Sequence, train: bool) -> None:
         for ld in loaders:
             ld.device_fn = self._make_device_fn(ld.dataset, train)
+            # on a card the host feeds kernels from the main thread: samples
+            # load in worker processes, off its GIL (data/loader.py)
+            ld.worker_processes = self.device.type == "cuda"
 
     # ------------------------------------------------------------------
     # optimizer plumbing
@@ -378,6 +387,7 @@ class Trainer:
                            micro_batch)
         finally:
             train_loader.batch_size = micro_batch
+            _close(train_loaders + val_loaders)
 
     def _execute(self, task, train_step, batch: Dict[str, torch.Tensor], micro_batch: int
                  ) -> Tuple[Dict[str, torch.Tensor], int]:
@@ -570,8 +580,11 @@ class Trainer:
     def test(self, task, ckpt_path: Optional[str] = None) -> Dict[str, float]:
         loaders = task.test_dataloader()
         eval_step = self._prepare(task, loaders, ckpt_path)
-        logs = self._run_eval(task, eval_step, loaders, Phase.TEST,
-                              limit=self.limit_test_batches)
+        try:
+            logs = self._run_eval(task, eval_step, loaders, Phase.TEST,
+                                  limit=self.limit_test_batches)
+        finally:
+            _close(loaders)
         self.callback_metrics = dict(logs)
         if self.logger is not None:
             self.logger.log_metrics(logs, step=self.global_step)
@@ -585,11 +598,14 @@ class Trainer:
         eval_step = self._prepare(task, loaders, ckpt_path)
         self.state.model.eval()
         results = []
-        for loader in loaders:
-            n_batches = self._limit(len(loader), self.limit_predict_batches)
-            for bidx, batch in enumerate(loader):
-                if bidx >= n_batches:
-                    break
-                outputs, _ = eval_step(batch)
-                results.append({k: _map_tensors(_host, v) for k, v in outputs.items()})
+        try:
+            for loader in loaders:
+                n_batches = self._limit(len(loader), self.limit_predict_batches)
+                for bidx, batch in enumerate(loader):
+                    if bidx >= n_batches:
+                        break
+                    outputs, _ = eval_step(batch)
+                    results.append({k: _map_tensors(_host, v) for k, v in outputs.items()})
+        finally:
+            _close(loaders)
         return results

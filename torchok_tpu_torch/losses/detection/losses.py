@@ -4,7 +4,8 @@ mmdet ``*Loss`` as ``MM<Name>``).
 
 Every loss takes an optional elementwise ``weight`` and an ``avg_factor``
 (mmdet semantics: ``sum(loss * weight) / avg_factor``), so a detection head
-can normalise by its positive count. Inputs are cast to f32, as in the JAX
+can normalise by its positive count; a vector of avg factors reduces the
+groups of a leading axis separately (DETR's decoder layers). Inputs are cast to f32, as in the JAX
 package; each class is registered under the names of
 ``torchok_tpu/losses/detection/losses.py:505-532``.
 """
@@ -21,6 +22,9 @@ from torchok_tpu_torch.ops.boxes import giou
 
 
 def _weighted_reduce(loss, weight, avg_factor, reduction="mean"):
+    """``sum(loss * weight) / avg_factor`` (or the mean). An ``avg_factor`` of
+    shape (G,) with ``loss`` of leading size G reduces each group alone and
+    returns (G,): DETR's decoder layers in one call."""
     if weight is not None:
         loss = loss * weight
     if reduction == "none":
@@ -28,7 +32,11 @@ def _weighted_reduce(loss, weight, avg_factor, reduction="mean"):
     if reduction == "sum":
         return torch.sum(loss)
     if avg_factor is not None:
-        return torch.sum(loss) / torch.clamp_min(torch.as_tensor(avg_factor), 1e-6)
+        avg_factor = torch.as_tensor(avg_factor)
+        if avg_factor.ndim == 1:
+            return torch.sum(loss.reshape(avg_factor.shape[0], -1), 1) / \
+                torch.clamp_min(avg_factor, 1e-6)
+        return torch.sum(loss) / torch.clamp_min(avg_factor, 1e-6)
     return torch.mean(loss)
 
 

@@ -16,6 +16,7 @@ from torch import nn
 
 from torchok_tpu_torch.constructor import BACKBONES, DETECTION_NECKS, HEADS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
+from torchok_tpu_torch.ops.common import trunc_normal_init
 from torchok_tpu_torch.tasks.base import BaseTask
 
 
@@ -37,12 +38,14 @@ class DetectionModel(nn.Module):
         features = self.backbone.forward_features(x)[-self.num_scales:]
         if self.neck is not None:
             features = self.neck(features)
-        output = self.bbox_head.format_dict(self.bbox_head(features))
+        head_output = self.bbox_head.format_dict(self.bbox_head(features))
+        # the input's (H, W) as host integers: the heads' losses scale boxes by it
+        output = {**head_output, "img_shape": tuple(x.shape[2:])}
         if "bboxes" in batch:
             output["gt_bboxes"] = batch["bboxes"]
             output["gt_labels"] = batch["label"]
         if not self.training:
-            preds = self.bbox_head.get_bboxes(**output, img_shape=tuple(x.shape[2:]))
+            preds = self.bbox_head.get_bboxes(**head_output, img_shape=tuple(x.shape[2:]))
             output["prediction_bboxes"] = preds["bboxes"]
             output["prediction_scores"] = preds["scores"]
             output["prediction_labels"] = preds["labels"]
@@ -79,8 +82,14 @@ class SingleStageDetectionTask(BaseTask):
         return self.model.bbox_head.loss(self.losses, **outputs)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX package's initial law part by part: the backbone's own,
-        the neck's convs LeCun normal, the head's (``FCOSHead.init_weights``)."""
+        """The JAX package's initial law part by part: the backbone's own
+        (timm's truncated normal where it has none, as the classification
+        task draws it), the neck's convs LeCun normal, the head's
+        (``FCOSHead.init_weights``, ``DETRHead.init_weights``)."""
         for part in (self.model.backbone, self.model.neck, self.model.bbox_head):
-            if part is not None:
+            if part is None:
+                continue
+            if hasattr(part, "init_weights"):
                 part.init_weights(generator)
+            else:
+                trunc_normal_init(part, generator)

@@ -37,7 +37,16 @@ modules use the timm or reference key names.
   ``fpn_convs.{i}.conv``, ``extra_conv_{i}`` -> ``fpn_convs.{n + i}.conv``
   after its n laterals; the FCOS head (``bbox_head``): ``cls_conv_{i}``/
   ``cls_gn_{i}`` -> ``cls_convs.{i}.conv``/``.gn``, the same for ``reg_``,
-  ``scale_{i}/scale`` -> ``scales.{i}.scale``: mmdet's names).
+  ``scale_{i}/scale`` -> ``scales.{i}.scale``: mmdet's names); the DETR
+  head (a ``bbox_head`` with ``query_embed``) by :func:`_detr_to_torch`:
+  ``encoder_{i}``/``decoder_{i}`` -> ``transformer.{encoder,decoder}.layers.{i}``,
+  ``self_attn``/``cross_attn`` -> ``attentions.0``/``.1`` (``.attn``), the
+  DenseGeneral ``query``/``key``/``value`` kernels (E, H, D) and biases
+  (H, D) packed into ``in_proj_weight`` (3E, E) and ``in_proj_bias`` (3E),
+  ``out`` (H, D, E) -> ``out_proj`` (E, E), ``norm{k}`` -> ``norms.{k-1}``,
+  ``ffn1``/``ffn2`` -> ``ffns.0.layers.0.0``/``.1``, ``query_embed`` ->
+  ``query_embedding.weight``, ``reg_ffn_0``/``_1`` -> ``reg_ffn.layers.0.0``/
+  ``.1``.
   Depthwise and 1x1 conv kernels take the same HWIO -> OIHW rule;
   ``relative_position_bias_table`` and ``gamma`` carry over as they are.
 
@@ -234,6 +243,87 @@ def _path_mapper(name: str, tree: Mapping[str, Any] = None) -> Callable[[List[st
     return _plain_path
 
 
+def _is_detr(tree: Any) -> bool:
+    return isinstance(tree, Mapping) and "query_embed" in tree
+
+
+_QKV = ("query", "key", "value")
+
+
+def _detr_module(parts: List[str]) -> List[str]:
+    """A DETR head's Flax module path -> the port's (mmdet's) module path."""
+    if (m := re.fullmatch(r"(encoder|decoder)_(\d+)", parts[0])):
+        out = ["transformer", m[1], "layers", m[2]]
+        for p in parts[1:]:
+            if p in ("self_attn", "cross_attn"):
+                cross = p == "cross_attn" and m[1] == "decoder"
+                out += ["attentions", "1" if cross else "0", "attn"]
+            elif p == "out":
+                out.append("out_proj")
+            elif (n := re.fullmatch(r"norm(\d)", p)):
+                out += ["norms", str(int(n[1]) - 1)]
+            else:
+                out += {"ffn1": ["ffns", "0", "layers", "0", "0"],
+                        "ffn2": ["ffns", "0", "layers", "1"]}.get(p, [p])
+        return out
+    if (m := re.fullmatch(r"reg_ffn_(\d)", parts[0])):
+        return ["reg_ffn", "layers"] + (["0", "0"] if m[1] == "0" else ["1"]) + parts[1:]
+    return list(parts)
+
+
+def _detr_key(path: Tuple[str, ...], prefix: str) -> str:
+    """The port key of a DETR leaf; q, k and v leaves name their packed
+    ``in_proj_weight``/``in_proj_bias``."""
+    if path == ("query_embed",):
+        return prefix + "query_embedding.weight"
+    if path[-2] in _QKV:
+        leaf = f"in_proj_{_LEAF.get(path[-1], path[-1])}"
+        return prefix + ".".join(_detr_module(list(path[:-2])) + [leaf])
+    return prefix + ".".join(_detr_module(list(path[:-1])) + [_LEAF.get(path[-1], path[-1])])
+
+
+def _detr_to_torch(tree: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """A Flax DETR head's params -> the port's state_dict entries."""
+    out: Dict[str, np.ndarray] = {}
+    packed: Dict[str, List[np.ndarray]] = {}
+    for path, leaf in _leaves(tree):
+        value = _value(leaf)
+        key = _detr_key(path, prefix)
+        if len(path) > 1 and path[-2] in _QKV:
+            # (E, H, D) kernel -> (H D, E) rows; (H, D) bias -> (H D,)
+            part = value.reshape(value.shape[0], -1).T if path[-1] == "kernel" \
+                else value.reshape(-1)
+            packed.setdefault(key, [None] * 3)[_QKV.index(path[-2])] = part
+        elif len(path) > 1 and path[-2] == "out" and path[-1] == "kernel":
+            out[key] = value.reshape(-1, value.shape[-1]).T  # (H, D, E) -> (E, H D)
+        else:
+            out[key] = _torch_layout(path[-1], value)
+    out.update({k: np.concatenate(parts) for k, parts in packed.items()})
+    return {k: np.array(v, order="C") for k, v in out.items()}
+
+
+def _detr_to_flax(state_dict: Mapping[str, Any], prefix: str,
+                  template: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`_detr_to_torch`, shaped like ``template``."""
+    out: Dict[str, Any] = {}
+    for path, leaf in _leaves(template):
+        shape = np.shape(leaf)
+        value = _value(state_dict[_detr_key(path, prefix)])
+        if len(path) > 1 and path[-2] in _QKV:
+            e = value.shape[-1] if path[-1] == "kernel" else value.shape[0] // 3
+            rows = value[_QKV.index(path[-2]) * e:(_QKV.index(path[-2]) + 1) * e]
+            value = (rows.T if path[-1] == "kernel" else rows).reshape(shape)
+        elif len(path) > 1 and path[-2] == "out" and path[-1] == "kernel":
+            value = value.T.reshape(shape)
+        else:
+            value = _flax_layout(path[-1], value)
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(value, order="C")
+    return out
+
+
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -300,6 +390,9 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
     ``np.asarray`` accepts."""
     out: Dict[str, np.ndarray] = {}
     for tree in _collections(variables).values():
+        if _is_detr(tree):
+            out.update(_detr_to_torch(tree, prefix))
+            continue
         mapper = _path_mapper(name, tree)
         for path, leaf in _leaves(tree):
             value = np.array(_torch_layout(path[-1], _value(leaf)), order="C")
@@ -325,10 +418,16 @@ def task_flax_to_state_dict(backbone_name: str,
 def task_name_map(backbone_name: str, variables: Mapping[str, Any],
                   collection: str = "params") -> Dict[str, Tuple[str, ...]]:
     """Port ``state_dict`` key -> path of the same leaf in one collection of
-    a classification or segmentation task's Flax variables (``("backbone",
-    "layers_0_blocks_0", ...)``)."""
+    a task's Flax variables (``("backbone", "layers_0_blocks_0", ...)``). A
+    DETR attention's packed ``in_proj_*`` names its q leaf (q, k and v share
+    their groups' labels)."""
     out: Dict[str, Tuple[str, ...]] = {}
     for part, tree in _collections(variables).get(collection, {}).items():
+        if _is_detr(tree):
+            for path, _ in _leaves(tree):
+                if path[-2:-1] not in (("key",), ("value",)):
+                    out[_detr_key(path, f"{part}.")] = (part,) + path
+            continue
         mapper = _path_mapper(backbone_name if part == "backbone" else part, tree)
         for path, _ in _leaves(tree):
             out[_key(mapper, path, f"{part}.")] = (part,) + path
@@ -341,7 +440,13 @@ def state_dict_to_task_flax(backbone_name: str, state_dict: Mapping[str, Any],
     """Carry a port ``state_dict`` (values ``np.asarray`` accepts) back into
     a nested dict shaped like one collection of the Flax ``variables``."""
     out: Dict[str, Any] = {}
+    trees = _collections(variables).get(collection, {})
+    detr = {part for part, tree in trees.items() if _is_detr(tree)}
+    for part in detr:
+        out[part] = _detr_to_flax(state_dict, f"{part}.", trees[part])
     for key, path in task_name_map(backbone_name, variables, collection).items():
+        if path[0] in detr:
+            continue
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
