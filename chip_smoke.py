@@ -175,6 +175,26 @@
      steps with gradient clipping and one validation with MMDetectionMAP,
      the named parameters moved, then its f32 head outputs on the card
      within 1e-3 of the CPU's at every level; 0 hand-written launches;
+   * ViT-S/16 and BEiT-B/16 (``VIT_SLICE_CONFIG``, ``VIT_TRAIN_CONFIG``,
+     ``BEIT_SLICE_CONFIG``, ``BEIT_TRAIN_CONFIG``: bench.py's
+     ``vit_small_224_bs128`` and ``beit_base_224_bs128``, 224x224, bs 128,
+     bf16, no pooling) in modes test, predict and train as the ResNet-50
+     slice runs, every parameter moved in training, one f32 forward +
+     backward on two images card against CPU, and the SDPA backend of a
+     bf16 train step from the profiler's ATen ops; the JAX ViT and BEiT
+     reach no Pallas kernel, so every counter stays at 0;
+   * the model of ``configs/detection/fcos_vit-s_coco.yaml`` at full width
+     (``fcos_vit_config``: vit_small_patch16_224, FPN and FCOSHead as for
+     ResNet-50; 400x672, bs 8, bf16, SGD with the recipe's ``paramwise_cfg``
+     and clipping at 35) under the recipe's FreezeUnfreeze (``backbone``,
+     ``stages: 1``) and ModelCheckpoint, through the COCO pipeline below:
+     8 train steps, the sanity and one validation pass; the frozen set
+     (patch_embed, pos_embed, cls_token, blocks.0), every frozen parameter on
+     its decay-only SGD trajectory recomputed on the host (within 16 x 2^-24
+     relative; one with no decay unchanged), every other parameter moved
+     (but the backbone's unused final norm and a box scale of a level
+     without positives), then its f32 head outputs on the card within 1e-3
+     of the CPU's; 0 hand-written launches;
    * the DETR north star ``configs/detection_toy_detr.yaml``
      (``DETR_RECIPE``) at its short budget (100 epochs, T_max 100) on the
      same toy set: resnet18 + DETRHead (3 + 3 layers, 128 wide, 64 queries)
@@ -243,13 +263,14 @@ def _synthetic(num_samples, shuffle, drop_last, size=256, batch=128, **extra):
     }]
 
 
-def _task(backbone, size, neck=None, **backbone_params):
+def _task(backbone, size, neck=None, pooling="Pooling", **backbone_params):
     task = {
         "name": "ClassificationTask",
         "params": {
             "backbone_name": backbone,
             "backbone_params": {"pretrained": False, "in_channels": 3, **backbone_params},
-            "pooling_name": "Pooling",
+            # a ViT or BEiT head takes the backbone's cls token: no pooling
+            **({"pooling_name": pooling} if pooling else {}),
             "head_name": "ClassificationHead",
             "head_params": {"num_classes": 1000},
             "inputs": [{"shape": [3, size, size], "dtype": "float32"}],
@@ -260,11 +281,11 @@ def _task(backbone, size, neck=None, **backbone_params):
     return task
 
 
-def slice_config(backbone, size, batch=128, neck=None, **backbone_params):
+def slice_config(backbone, size, batch=128, neck=None, pooling="Pooling", **backbone_params):
     """The inference recipe (configs/classification_<model>_synthetic.yaml)."""
     data = _synthetic(3 * batch, False, False, size, batch)
     return {
-        "task": _task(backbone, size, neck, **backbone_params),
+        "task": _task(backbone, size, neck, pooling, **backbone_params),
         "data": {"TEST": data, "PREDICT": data},
         "trainer": {"accelerator": "gpu", "precision": 16,
                     "limit_test_batches": 3, "limit_predict_batches": 3},
@@ -273,10 +294,10 @@ def slice_config(backbone, size, batch=128, neck=None, **backbone_params):
     }
 
 
-def train_config(backbone, size, batch=128, neck=None, **backbone_params):
+def train_config(backbone, size, batch=128, neck=None, pooling="Pooling", **backbone_params):
     """The train recipe (configs/classification_<model>_synthetic_train.yaml)."""
     return {
-        "task": _task(backbone, size, neck, **backbone_params),
+        "task": _task(backbone, size, neck, pooling, **backbone_params),
         "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
                                    "mapping": {"input": "prediction", "target": "target"}}]},
         "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
@@ -304,6 +325,11 @@ MNV3_SLICE_CONFIG = slice_config("mobilenetv3_large_100", 224, batch=256)
 # bench.py's hrnet_w18_224_bs128 case: HRNet-W18 with HRNetClassificationNeck
 HRNET_SLICE_CONFIG = slice_config("hrnet_w18", 224, neck="HRNetClassificationNeck")
 HRNET_TRAIN_CONFIG = train_config("hrnet_w18", 224, neck="HRNetClassificationNeck")
+# bench.py's vit_small_224_bs128 and beit_base_224_bs128: no pooling
+VIT_SLICE_CONFIG = slice_config("vit_small_patch16_224", 224, pooling=None)
+VIT_TRAIN_CONFIG = train_config("vit_small_patch16_224", 224, pooling=None)
+BEIT_SLICE_CONFIG = slice_config("beit_base_patch16_224", 224, pooling=None)
+BEIT_TRAIN_CONFIG = train_config("beit_base_patch16_224", 224, pooling=None)
 
 _SHAPES_TRANSFORM = [{"name": "Resize", "params": {"height": 32, "width": 32}},
                      {"name": "Normalize", "params": {"mean": [0.485, 0.456, 0.406],
@@ -979,6 +1005,41 @@ def write_coco_tree(root, splits=None):
         with open(os.path.join(coco, "annotations", f"instances_{split}.json"), "w") as f:
             json.dump({"images": images, "annotations": annotations,
                        "categories": categories}, f)
+
+
+# configs/detection/fcos_vit-s_coco.yaml's model at full width under its
+# FreezeUnfreeze, through the COCO pipeline of detr_gcvit_config
+FCOS_VIT_SIZE = (400, 672)
+FCOS_VIT_TRAIN, FCOS_VIT_VALID = 64, 16
+FCOS_VIT_STEPS = FCOS_VIT_TRAIN // 8
+
+
+def fcos_vit_config(data_folder: str, log_dir: str) -> dict:
+    """The recipe of ``configs/detection/fcos_vit-s_coco.yaml`` but for
+    ``pretrained: false`` (no weights in the repository), its
+    ``data_folder``, bf16 boxes, a CSVLogger and ModelCheckpoint under
+    ``log_dir`` (no tensorboardX on the card machine) and a short budget:
+    one epoch over the FCOS_VIT_TRAIN images of the COCO tree, one
+    validation; FreezeUnfreeze and ModelCheckpoint as the recipe sets them."""
+    cfg = fcos_r50_config(data_folder)
+    params = cfg["task"]["params"]
+    params["backbone_name"] = "vit_small_patch16_224"
+    params["inputs"] = [{"shape": [3, *FCOS_VIT_SIZE], "dtype": "bfloat16"}]
+    cfg["optimization"][0]["optimizer"]["paramwise_cfg"] = {"bias_lr_mult": 2.0,
+                                                            "bias_decay_mult": 0.0}
+    cfg["data"] = {"TRAIN": _coco_data(data_folder, True), "VALID": _coco_data(data_folder, False)}
+    cfg["trainer"]["num_sanity_val_steps"] = 2
+    cfg["logger"] = {"name": "CSVLogger", "experiment_name": "coco_detection",
+                     "log_dir": log_dir, "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}"}
+    cfg["callbacks"] = [{"name": "ModelCheckpoint",
+                         "params": {"dirpath": os.path.join(log_dir, "ckpt"),
+                                    "monitor": "valid/MMDetMAP_50", "save_top_k": 1,
+                                    "save_last": True, "mode": "max",
+                                    "save_weights_only": False}},
+                        {"name": "FreezeUnfreeze",
+                         "params": {"freeze_modules": [{"module_name": "backbone",
+                                                        "stages": 1}]}}]
+    return cfg
 
 
 TRAIN_STEPS = 6
@@ -2306,7 +2367,8 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
                     per_route=None, fwd_routes=None):
     """The train slice of one model: ``per_forward`` / ``per_backward`` map
     each kernel to its launches per forward / per train step; ``must_move``
-    lists name fragments of parameters that have to change; ``per_route``,
+    lists name fragments of parameters that have to change (None: every
+    parameter); ``per_route``,
     if given, maps each (K3b or K5 kernel, route) to its launches per train
     step (``ops.window_attention_dot.ROUTE_LAUNCHES``), ``fwd_routes`` each
     (K3a or K4 kernel, route) to its launches per forward."""
@@ -2374,6 +2436,8 @@ def run_train_slice(label, config, size, per_forward, per_backward, must_move, r
     for key in ("valid/Accuracy", "valid/loss"):
         if key not in logs or not math.isfinite(logs[key]):
             fail(f"{label}: {key} missing or not finite in {logs}")
+    if must_move is None:
+        must_move = [name for name, _ in trainer.state.model.named_parameters()]
     moved = dict.fromkeys(must_move, False)
     for name, value in trainer.state.model.state_dict().items():
         if not bool(torch.isfinite(value).all().item()):
@@ -3600,6 +3664,219 @@ def run_detr_full_width(records):
     print(f"detr_gcvit phase: {time.perf_counter() - start:.1f} s", flush=True)
 
 
+SDPA_OPS = {"flash": "_scaled_dot_product_flash_attention",
+            "efficient": "_scaled_dot_product_efficient_attention",
+            "cudnn": "_scaled_dot_product_cudnn_attention",
+            "math": "_scaled_dot_product_attention_math"}
+
+
+def sdpa_backends(label, config, size, batch=8):
+    """Which backend ``F.scaled_dot_product_attention`` took in one bf16
+    train step of the model (random weights, ``batch`` images), from the
+    ATen ops the profiler records on the host: forward and backward."""
+    import torch
+    import torchok_tpu_torch  # noqa: F401 — registers the components
+    from torch.profiler import ProfilerActivity, profile
+    from torchok_tpu_torch.constructor import TASKS
+    from torchok_tpu_torch.constructor.config import config_from_dict
+    from torchok_tpu_torch.constructor.config_structure import merge_structured
+
+    config = merge_structured(config_from_dict(copy.deepcopy(config)))
+    task = TASKS.get(config.task.name)(config, **config.task.params.to_dict())
+    task.init_weights(torch.Generator().manual_seed(5))
+    model = task.model.cuda().train()
+    generator = torch.Generator().manual_seed(6)
+    batch_in = {"image": torch.randn((batch, 3, size, size), generator=generator).cuda(),
+                "target": torch.randint(0, 1000, (batch,), generator=generator).cuda()}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            total, _ = task.compute_loss(model(batch_in))
+        total.backward()
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    seen = {name: sorted(k for k in keys if op in k) for name, op in SDPA_OPS.items()}
+    seen = {name: ops for name, ops in seen.items() if ops}
+    print(f"{label} SDPA backend in a bf16 train step (bs{batch}): {sorted(seen)} "
+          f"(ATen ops {sorted(o for ops in seen.values() for o in ops)})", flush=True)
+    if not seen:
+        fail(f"{label}: no scaled_dot_product_attention op in a train step")
+    return sorted(seen)
+
+
+def run_vit_beit_slices(records):
+    """bench.py's vit_small_224_bs128 and beit_base_224_bs128 through
+    ``run``: test and predict (3 batches each; the f32 logits on the card
+    within 1e-3 of the CPU's on two images), a train slice of 6 one-step
+    epochs in which every parameter moves, one f32 forward + backward on two
+    images against the CPU (every gradient within 1e-3 of the largest), and
+    the SDPA backend of a bf16 train step. The JAX ViT and BEiT call no
+    Pallas kernel: every counter stays at 0."""
+    start = time.perf_counter()
+    for label, slice_cfg, train_cfg, probe in (
+            ("vit_small_patch16_224", VIT_SLICE_CONFIG, VIT_TRAIN_CONFIG, "blocks.0.attn.qkv"),
+            ("beit_base_patch16_224", BEIT_SLICE_CONFIG, BEIT_TRAIN_CONFIG,
+             "relative_position_bias_table")):
+        phase = time.perf_counter()
+        run_slice(label, slice_cfg, {}, records, 224)
+        run_train_slice(label, train_cfg, 224, {}, {}, None, records)
+        gradient_reference(label, train_cfg, 224, {}, probe)
+        sdpa_backends(label, train_cfg, 224)
+        print(f"{label} phase: {time.perf_counter() - phase:.1f} s; 0 launches of every "
+              "hand-written kernel", flush=True)
+    print(f"vit and beit slices: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+FCOS_VIT_FROZEN = ("backbone.patch_embed.", "backbone.pos_embed", "backbone.cls_token",
+                   "backbone.blocks.0.")
+FCOS_VIT_MAY_STAY = ("backbone.norm.", "bbox_head.scales.")
+
+
+def decay_only(initial, steps, lr, weight_decay, momentum):
+    """SGD's trajectory of a parameter whose gradient is zero (``torch.optim.
+    SGD``, no dampening, no Nesterov), in f64 on the host."""
+    p, buf = initial.double(), None
+    for _ in range(steps):
+        d = weight_decay * p
+        buf = d if buf is None else momentum * buf + d
+        p = p - lr * buf
+    return p
+
+
+def run_fcos_vit_full_width():
+    """The model of ``configs/detection/fcos_vit-s_coco.yaml`` at full width
+    (``fcos_vit_config``: vit_small_patch16_224, FPN 256 from level 1 with two
+    extra convs on the outputs, FCOSHead of 80 classes; 400x672, bs 8, bf16,
+    SGD with the recipe's ``paramwise_cfg`` and clipping at 35) under the
+    recipe's FreezeUnfreeze (``backbone``, ``stages: 1``) and
+    ModelCheckpoint, through COCODetection / HorizontalFlip / FitResize /
+    Normalize / PadIfNeeded / ToTensorV2 from a synthetic COCO tree:
+    FCOS_VIT_STEPS train steps, the sanity and one validation pass with
+    MMDetectionMAP. Checks the frozen set (patch_embed, pos_embed,
+    cls_token, blocks.0), that every frozen parameter followed its
+    decay-only SGD trajectory recomputed here (one with no decay did not
+    move at all), that every other parameter moved (but the backbone's
+    final norm, which ``forward_features`` leaves out, as the JAX model
+    does, and a level's box scale, which has no decay and a gradient only
+    where that level holds a positive sample), the checkpoint files, then
+    the trained model in f32 on two validation images, card against CPU,
+    over every raw head output, within 1e-3 of each output's largest
+    magnitude. 0 hand-written launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.engine.callbacks import Callback
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.initial = {}
+
+        def on_fit_start(self, trainer, task):
+            self.initial = {k: v.detach().clone()
+                            for k, v in trainer.state.model.state_dict().items()}
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fcos_vit_") as tmp:
+        write_coco_tree(tmp, (("train2017", FCOS_VIT_TRAIN, 3), ("val2017", FCOS_VIT_VALID, 4)))
+        written = time.perf_counter() - start
+        recorder = Recorder()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        log_dir = os.path.join(tmp, "logs")
+        trainer, logs = run(fcos_vit_config(tmp, log_dir), "train", [recorder])
+        torch.cuda.synchronize()
+        require_launches("fcos_vit train", launch_counts(), {})
+        peak = torch.cuda.max_memory_allocated()
+        stats, evals = trainer.last_fit, trainer.last_eval
+        model = trainer.state.model
+        frozen = trainer.state.frozen_params
+        print(f"fcos_vit (vit_small_patch16_224 + FPN 256 + FCOSHead 80 classes, "
+              f"{FCOS_VIT_SIZE[0]}x{FCOS_VIT_SIZE[1]}, bs8 bf16, FreezeUnfreeze backbone "
+              f"stages 1, a COCO tree of {FCOS_VIT_TRAIN + FCOS_VIT_VALID} PNGs written in "
+              f"{written:.2f} s): train {stats['steps']} steps, {stats['images']} images in "
+              f"{stats['seconds']:.3f} s = {stats['images'] / stats['seconds']:.2f} img/s (a "
+              f"smoke reading incl. the first steps, host clock, decoded, fit-resized and padded "
+              f"on the host); eval {evals['images']} images in {evals['seconds']:.3f} s = "
+              f"{evals['images'] / evals['seconds']:.2f} img/s; peak device memory "
+              f"{peak / 2**20:.1f} MiB; {len(frozen)} parameter tensors frozen "
+              f"({sum(p.numel() for n, p in model.named_parameters() if n in frozen)} values); "
+              f"logs {logs}; 0 hand-written launches on {card_line()}", flush=True)
+        if stats["steps"] != FCOS_VIT_STEPS:
+            fail(f"fcos_vit: {stats['steps']} train steps, expected {FCOS_VIT_STEPS}")
+        for key in ("train/loss", "valid/loss", "valid/MMDetMAP_50", "valid/loss_bbox"):
+            if not math.isfinite(logs.get(key, float("nan"))):
+                fail(f"fcos_vit: {key} missing or not finite in {logs}")
+        want = {n for n, _ in model.named_parameters() if n.startswith(FCOS_VIT_FROZEN)}
+        if frozen != want:
+            fail(f"fcos_vit: frozen {sorted(frozen ^ want)[:8]}... differ from the recipe's "
+                 "stage-1 policy")
+        ckpts = sorted(os.listdir(os.path.join(log_dir, "ckpt")))
+        if "last.ckpt" not in ckpts or len(ckpts) != 2:
+            fail(f"fcos_vit: checkpoint files {ckpts}, expected the best one and last.ckpt")
+        group_of = {id(p): g for g in trainer.bundles[0].optimizer.param_groups
+                    for p in g["params"]}
+        worst, decayed, still, unmoved = 0.0, 0, 0, []
+        for name, p in model.named_parameters():
+            value, initial = p.detach().cpu(), recorder.initial[name].cpu()
+            if not bool(torch.isfinite(value).all().item()):
+                fail(f"fcos_vit train: {name} is not finite")
+            if name not in frozen:
+                if not torch.equal(value, initial) and name.startswith("backbone.norm."):
+                    fail(f"fcos_vit train: {name} moved though no forward uses it")
+                if torch.equal(value, initial):
+                    unmoved.append(name)
+                continue
+            group = group_of[id(p)]
+            if not group["weight_decay"]:
+                still += 1
+                if not torch.equal(value, initial):
+                    fail(f"fcos_vit: frozen {name} with no decay moved")
+                continue
+            decayed += 1
+            traj = decay_only(initial, FCOS_VIT_STEPS, group["lr"], group["weight_decay"],
+                              group["momentum"])
+            # f32 roundings: two an update, eight updates
+            err = ((value.double() - traj).abs() / (traj.abs() + 1e-30)).max().item()
+            worst = max(worst, err)
+            if not err <= 16 * 2.0 ** -24 or torch.equal(value, initial):
+                fail(f"fcos_vit: frozen {name} left its decay-only trajectory ({err:.3e} "
+                     "relative) or did not move")
+        # a level's scale has no decay and a gradient only where that level
+        # holds a positive sample; the backbone's final norm is in no forward
+        stuck = [n for n in unmoved if not n.startswith(FCOS_VIT_MAY_STAY)]
+        if stuck:
+            fail(f"fcos_vit train: unfrozen parameters that never changed: {stuck[:8]}")
+        print(f"fcos_vit freeze check: {decayed} frozen tensors on their decay-only SGD "
+              f"trajectory within {worst:.3e} relative (tol 16 x 2^-24), {still} frozen tensors "
+              f"without decay unchanged, every other parameter moved but {unmoved} "
+              f"(allowed: {FCOS_VIT_MAY_STAY})", flush=True)
+
+        dataset = trainer.task.val_dataloader()[0].dataset
+        x = torch.from_numpy(np.stack([dataset[i]["image"] for i in range(2)]))
+        x = x.float().permute(0, 3, 1, 2).contiguous()
+        model = model.float().eval()
+        with torch.inference_mode():
+            feats = model.backbone.forward_features(x.cuda())[-model.num_scales:]
+            on_card = [[o.cpu() for o in level] for level in model.bbox_head(model.neck(feats))]
+            model = model.cpu()
+            feats = model.backbone.forward_features(x)[-model.num_scales:]
+            on_cpu = model.bbox_head(model.neck(feats))
+        worst = 0.0
+        for name, card_levels, cpu_levels in zip(("cls", "bbox", "centerness"), on_card, on_cpu):
+            for i, (a, b) in enumerate(zip(card_levels, cpu_levels)):
+                err = ((a - b).abs().max() / b.abs().max()).item()
+                worst = max(worst, err)
+                print(f"fcos_vit reference (f32, 2 images, card vs CPU): {name} level {i} "
+                      f"{tuple(b.shape)} max_abs_err / max|out| = {err:.3e} (tol 1e-3), "
+                      f"max|out| {b.abs().max().item():.3e}", flush=True)
+        if not worst <= 1e-3:
+            fail(f"fcos_vit: head outputs on the card differ from the CPU run by {worst:.3e} "
+                 "of their largest magnitude")
+    print(f"fcos_vit phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def unzero_and_calibrate(model, images):
     """HRNet's blocks at unit last-norm scale (``unzero_last_norms``) and its
     norms at the images' statistics (``calibrate_norms``): unit scales alone
@@ -3839,6 +4116,11 @@ def main() -> None:
     print("hrnet_w18 (test, predict, train, gradient reference): 0 launches of every "
           "hand-written kernel", flush=True)
 
+    # bench.py's vit_small_224_bs128 and beit_base_224_bs128: global attention
+    # on SDPA, as the JAX ViT and BEiT leave it to XLA; every counter stays at 0
+    stamp("vit and beit slices")
+    run_vit_beit_slices(records)
+
     stamp("north stars")
     run_shapes_recipe()
     run_resume_phase(records)
@@ -3847,6 +4129,8 @@ def main() -> None:
     run_segmentation_recipe()
     run_fcos_recipe(toy_root)
     run_fcos_full_width()
+    stamp("fcos_vit at full width, under FreezeUnfreeze")
+    run_fcos_vit_full_width()
     stamp("detr_gcvit at full width")
     run_detr_full_width(records)
     stamp("detr recipe, joined")

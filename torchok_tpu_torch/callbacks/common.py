@@ -108,7 +108,9 @@ class ModelSummary(Callback):
     """Per-module parameter table at fit start (Lightning's ModelSummary).
     ``max_depth`` bounds how deep into the module tree the breakdown goes;
     modules without parameters are left out, as they have no entry in a Flax
-    parameter tree. "Norm stats / buffers" counts the BatchNorm running
+    parameter tree. "Trainable" leaves out the parameters the freeze mask
+    holds (``TrainState.frozen_params``), as the JAX package counts its
+    ``grad_mask``. "Norm stats / buffers" counts the BatchNorm running
     means and variances (no ``num_batches_tracked``), as ``batch_stats``
     holds them."""
 
@@ -134,7 +136,8 @@ class ModelSummary(Callback):
     def on_fit_start(self, trainer, task) -> None:
         model = trainer.state.model
         total = self._count(model)
-        trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+        frozen = trainer.state.frozen_params  # the grad mask, as the JAX package counts it
+        trainable = sum(p.numel() for n, p in model.named_parameters() if n not in frozen)
         stats = sum(buf.numel() for m in model.modules() if _is_norm(m)
                     for name, buf in m.named_buffers(recurse=False)
                     if name in ("running_mean", "running_var"))

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import FrozenSet, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -20,3 +20,20 @@ class TrainState:
     step: int = 0
     dropout_generator: Optional[torch.Generator] = None
     transform_generator: Optional[torch.Generator] = None
+    # the JAX package's grad_mask and bn_mask, as the names they zero: the
+    # parameters whose gradient the train step replaces by zeros (the
+    # optimizer still steps them) and the BatchNorm modules whose running
+    # statistics stay as they are in training forwards
+    frozen_params: FrozenSet[str] = frozenset()
+    frozen_stats: FrozenSet[str] = frozenset()
+
+    def set_masks(self, params: Iterable[str], stats: Iterable[str]) -> None:
+        """Freeze these parameters (``requires_grad`` off: autograd skips
+        them and the step hands the optimizer zeros) and these BatchNorms'
+        running statistics; everything else trains."""
+        self.frozen_params, self.frozen_stats = frozenset(params), frozenset(stats)
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(name not in self.frozen_params)
+        for name, m in self.model.named_modules():
+            if hasattr(m, "update_running_stats"):
+                m.update_running_stats = name not in self.frozen_stats

@@ -30,8 +30,12 @@ reference: torchok/constructor/runner.py + Lightning internals).
   runs under ``torch.inference_mode()``.
 * One train step is forward, ``task.compute_loss``, backward and, on every
   ``accumulate_grad_batches``-th step, clip + optimizer step on the mean
-  gradient. Losses are summed on the device and read back once per log
-  interval and once per epoch, so no step waits for the host.
+  gradient. A parameter frozen by ``TrainState.set_masks`` (FreezeUnfreeze)
+  or left out of the loss gets a zero gradient there, before the clip, and
+  is stepped all the same, as the JAX package's masked gradients are; a
+  frozen BatchNorm keeps its running statistics. Losses are summed on the
+  device and read back once per log interval and once per epoch, so no
+  step waits for the host.
 * Host-side schedulers: the engine asks the scheduler for the lr (per epoch
   or per step) and writes ``base_lr * factor`` into every param group.
 * ``steps_per_execution: K`` (``torchok_tpu``'s fused multi-step): the TRAIN
@@ -280,7 +284,7 @@ class Trainer:
         in ``torchok_tpu``). Returns detached outputs and losses."""
         state = self.state
         model = state.model
-        params = [p for p in model.parameters() if p.requires_grad]
+        params = list(model.parameters())
         every = self.accumulate_grad_batches
 
         def train_step(batch: Dict[str, torch.Tensor]):
@@ -290,6 +294,12 @@ class Trainer:
             (total / every if every > 1 else total).backward()
             state.step += 1
             if state.step % every == 0:
+                # the JAX step multiplies every gradient by grad_mask and
+                # updates every parameter: a frozen (or unused) one takes
+                # zeros, never None, so weight decay and momentum still move it
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
                 if self.gradient_clip_val:
                     self._clip_gradients(params)
                 for optimizer in state.optimizers:

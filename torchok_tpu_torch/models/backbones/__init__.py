@@ -1,2 +1,2 @@
-from torchok_tpu_torch.models.backbones import (davit, efficientnet, gcvit, hrnet,  # noqa: F401
-                                              mobilenetv3, resnet, swin)
+from torchok_tpu_torch.models.backbones import (beit, davit, efficientnet, gcvit,  # noqa: F401
+                                              hrnet, mobilenetv3, resnet, swin, vit)

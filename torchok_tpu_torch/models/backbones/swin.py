@@ -285,6 +285,11 @@ class SwinTransformerV2(BaseBackbone):
     def no_weight_decay(self) -> List[str]:
         return ["absolute_pos_embed", "cpb_mlp", "logit_scale"]
 
+    def get_stages(self, stage: int) -> List[str]:
+        """Parameter-name prefixes of the patch embedding (its conv and norm)
+        and the first ``stage`` stages, each with the patch merging after it."""
+        return ["patch_embed", "absolute_pos_embed"] + [f"layers.{i}" for i in range(stage)]
+
     def _block(self, blk: SwinBlock, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         if not (self.grad_checkpointing and self.training and torch.is_grad_enabled()):
             return blk(x, hw)

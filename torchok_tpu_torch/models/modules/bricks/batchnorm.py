@@ -28,6 +28,10 @@ class BatchNorm2d(nn.Module):
         self.momentum = momentum  # Flax's: the share the running average keeps
         self.eps = eps
         self.zero_init = zero_init
+        # off: a training forward still normalises with the batch's
+        # statistics but leaves the running ones as they are (the JAX
+        # package's bn_mask at 0, set by FreezeUnfreeze)
+        self.update_running_stats = True
         self.weight = nn.Parameter(torch.zeros(num_features) if zero_init
                                    else torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -45,6 +49,8 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if not self.update_running_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         n = x.numel() // x.shape[1]
         # the library call updates copies: autograd keeps what it was handed,
         # and the buffers are written once, after the correction

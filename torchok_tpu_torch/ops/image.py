@@ -1,8 +1,10 @@
 """Image ops (port of ``max_pool``, ``avg_pool``, ``blur_pool``,
 ``resize_bilinear`` and ``resize_nearest_cv2`` of ``torchok_tpu.ops.image``;
 that module's adaptive pooling and coordinate helpers are not ported yet).
-The pools and ``resize_bilinear_nchw`` (the models' resampling) take NCHW
-tensors; the other resizes take the data pipeline's NHWC (or HWC) images."""
+The pools, ``resize_bilinear_nchw`` (the models' resampling) and
+``resize_linear`` (``jax.image.resize(..., "linear")``, which antialiases
+when it shrinks) take NCHW tensors; the other resizes take the data
+pipeline's NHWC (or HWC) images."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -67,6 +69,43 @@ def resize_bilinear_nchw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor
     resize_bilinear`` resamples the models' NHWC maps."""
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
                          antialias=False)
+
+
+def linear_resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """The (n_in, n_out) f32 matrix of ``jax.image.resize``'s "linear"
+    method along one axis (``scale_and_translate`` with the triangle kernel
+    and ``antialias=True``): half-pixel centres; when shrinking, the kernel
+    widens by ``n_in / n_out`` (a low-pass filter); each output's weights are
+    normalised over the taps that fall inside the input."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / f32(n_out / n_in)  # in f32, as JAX computes it
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(
+        sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
+
+
+def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, ..., method="linear")`` of an NCHW tensor: one
+    weight matrix an axis (:func:`linear_resize_weights`), so a shrinking
+    axis is antialiased where ``resize_bilinear_nchw`` takes two taps; an
+    axis whose size stays is left as it is. In ``x``'s dtype, autocast or
+    not (the JAX models resample their f32 tables before the cast).
+    Differentiable in ``x``."""
+    h, w = x.shape[2:]
+    with torch.autocast(x.device.type, enabled=False):
+        if h != size[0]:
+            wh = torch.from_numpy(linear_resize_weights(h, size[0])).to(x.device, x.dtype)
+            x = torch.einsum("nchw,hy->ncyw", x, wh)
+        if w != size[1]:
+            ww = torch.from_numpy(linear_resize_weights(w, size[1])).to(x.device, x.dtype)
+            x = torch.einsum("nchw,wx->nchx", x, ww)
+    return x
 
 
 def nearest_cv2_indices(src: int, dst: int) -> np.ndarray:

@@ -27,6 +27,14 @@ _PRECISION_TO_DTYPE = {
 }
 
 
+def size_to_inputs(backbone: nn.Module, inputs: Optional[list]) -> None:
+    """A backbone whose parameter shapes follow its input (BEiT's position
+    tables: ``set_input_size``) takes the (H, W) of the first ``inputs``
+    spec (CHW), the example input the JAX package initialises with."""
+    if inputs and hasattr(backbone, "set_input_size"):
+        backbone.set_input_size(tuple(inputs[0]["shape"])[-2:])
+
+
 class BaseTask:
     def __init__(self, hparams: ConfigNode, **_):
         self._hparams = hparams

@@ -18,7 +18,7 @@ from torch import nn
 from torchok_tpu_torch.constructor import BACKBONES, HEADS, NECKS, POOLINGS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
 from torchok_tpu_torch.ops.common import trunc_normal_init
-from torchok_tpu_torch.tasks.base import BaseTask
+from torchok_tpu_torch.tasks.base import BaseTask, size_to_inputs
 
 
 def forward_aux_keys(batch: Dict[str, Any], output: Dict[str, Any]) -> Dict[str, Any]:
@@ -67,10 +67,11 @@ class ClassificationTask(BaseTask):
                  head_params: Optional[dict] = None,
                  inputs: Optional[list] = None,
                  **kwargs):
-        # `inputs` (example input specs) is accepted for recipe compatibility:
-        # the port's modules need no example batch to initialise
+        # `inputs` (example input specs): the port's modules need no example
+        # batch to initialise, but a backbone may size its tables by it
         super().__init__(hparams, **kwargs)
         backbone = BACKBONES.get(backbone_name)(**dict(backbone_params or {}))
+        size_to_inputs(backbone, inputs)
 
         in_channels = backbone.out_channels
         neck = None

@@ -17,7 +17,7 @@ from torch import nn
 from torchok_tpu_torch.constructor import BACKBONES, DETECTION_NECKS, HEADS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
 from torchok_tpu_torch.ops.common import trunc_normal_init
-from torchok_tpu_torch.tasks.base import BaseTask
+from torchok_tpu_torch.tasks.base import BaseTask, size_to_inputs
 
 
 class DetectionModel(nn.Module):
@@ -61,10 +61,11 @@ class SingleStageDetectionTask(BaseTask):
                  neck_name: Optional[str] = None, num_scales: int = 4,
                  backbone_params: Optional[dict] = None, neck_params: Optional[dict] = None,
                  head_params: Optional[dict] = None, inputs: Optional[list] = None, **kwargs):
-        # `inputs` (example input specs) is accepted for recipe compatibility:
-        # the port's modules need no example batch to initialise
+        # `inputs` (example input specs): the port's modules need no example
+        # batch to initialise, but a backbone may size its tables by it
         super().__init__(hparams, **kwargs)
         backbone = BACKBONES.get(backbone_name)(**dict(backbone_params or {}))
+        size_to_inputs(backbone, inputs)
         enc = tuple(backbone.out_encoder_channels)[-num_scales:]
         neck = None
         head_in = enc[-1]

@@ -14,7 +14,7 @@ from torch import nn
 
 from torchok_tpu_torch.constructor import BACKBONES, HEADS, NECKS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
-from torchok_tpu_torch.tasks.base import BaseTask
+from torchok_tpu_torch.tasks.base import BaseTask, size_to_inputs
 
 
 class SegmentationModel(nn.Module):
@@ -48,10 +48,11 @@ class SegmentationTask(BaseTask):
                  head_params: Optional[dict] = None,
                  inputs: Optional[list] = None,
                  **kwargs):
-        # `inputs` (example input specs) is accepted for recipe compatibility:
-        # the port's modules need no example batch to initialise
+        # `inputs` (example input specs): the port's modules need no example
+        # batch to initialise, but a backbone may size its tables by it
         super().__init__(hparams, **kwargs)
         backbone = BACKBONES.get(backbone_name)(**dict(backbone_params or {}))
+        size_to_inputs(backbone, inputs)
         neck = NECKS.get(neck_name)(in_channels=tuple(backbone.out_encoder_channels),
                                     **dict(neck_params or {}))
         head = HEADS.get(head_name)(in_channels=neck.out_channels, **dict(head_params or {}))

@@ -1,7 +1,7 @@
 """Flax variables -> PyTorch state_dict for the port's modules (numpy only).
 
 The inverse of ``torchok_tpu.utils.torch_convert`` (``map_swin``,
-``map_gcvit``, ``map_davit``, ``map_resnet`` and the layout adaptation in
+``map_gcvit``, ``map_davit``, ``map_resnet``, ``map_vit`` and the layout adaptation in
 ``fit_tensor``): it
 carries a ``torchok_tpu`` model's parameters into ``torchok_tpu_torch``, whose
 modules use the timm or reference key names.
@@ -46,7 +46,11 @@ modules use the timm or reference key names.
   ``out`` (H, D, E) -> ``out_proj`` (E, E), ``norm{k}`` -> ``norms.{k-1}``,
   ``ffn1``/``ffn2`` -> ``ffns.0.layers.0.0``/``.1``, ``query_embed`` ->
   ``query_embedding.weight``, ``reg_ffn_0``/``_1`` -> ``reg_ffn.layers.0.0``/
-  ``.1``.
+  ``.1``; ViT and BEiT: ``blocks_3`` -> ``blocks.3``, BEiT's stem conv
+  ``patch_embed`` -> ``patch_embed.proj`` and a block's
+  ``attn/rel_pos_bias/relative_position_bias_table`` ->
+  ``attn.relative_position_bias_table`` (the shared table keeps
+  ``rel_pos_bias.``), as timm names them.
   Depthwise and 1x1 conv kernels take the same HWIO -> OIHW rule;
   ``relative_position_bias_table`` and ``gamma`` carry over as they are.
 
@@ -213,6 +217,24 @@ def _fcos_path(parts: List[str]) -> List[str]:
     return out
 
 
+def _vit_path(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for p in parts:
+        if (m := re.fullmatch(r"blocks_(\d+)", p)):
+            out += ["blocks", m[1]]
+        else:
+            out.append(p)
+    return out
+
+
+def _beit_path(parts: List[str]) -> List[str]:
+    out = _vit_path(parts)
+    if out == ["patch_embed"]:  # the Flax BEiT's stem conv is ``patch_embed`` itself
+        return ["patch_embed", "proj"]
+    # a block's own table sits on its attention module in timm's names
+    return out[:-1] if out[-1:] == ["rel_pos_bias"] and len(out) > 1 else out
+
+
 def _plain_path(parts: List[str]) -> List[str]:
     return list(parts)
 
@@ -223,6 +245,8 @@ _FAMILY_PATHS: List[Tuple[str, Callable[[List[str]], List[str]]]] = [
     (r"^swinv2", _swin_path),
     (r"^gcvit", _gcvit_path),
     (r"^davit", _davit_path),
+    (r"^vit_", _vit_path),
+    (r"^beit_", _beit_path),
     (_EFFICIENTNET, _efficientnet_path),
     (_MOBILENETV3, _efficientnet_path),
 ]
