@@ -16,9 +16,11 @@ against ``torchok_tpu`` on the CPU, and the detection recipe dicts of
   writes; ``FCOS_RECIPE`` equals ``configs/detection_toy_fcos.yaml``.
 """
 import copy
+import fcntl
 import importlib.util
 import json
 import struct
+import time
 import types
 import zlib
 from pathlib import Path
@@ -32,6 +34,7 @@ from PIL import Image
 import torchok_tpu  # noqa: F401 — registers the JAX components
 import torchok_tpu_torch  # noqa: F401
 from torchok_tpu import native as jax_native
+from torchok_tpu.native import build as jax_native_build
 from torchok_tpu.constructor import DATASETS as JAX_DATASETS
 from torchok_tpu.constructor import TRANSFORMS as JAX_TRANSFORMS
 from torchok_tpu.data.datasets.base import ImageDataset as JaxImageDataset
@@ -65,7 +68,32 @@ def _row_filters(path):
     return set(raw[::row][:h])
 
 
-def test_png_files_decode_bit_equal_to_libpng(tmp_path):
+@pytest.fixture
+def libpng_decoder(monkeypatch):
+    """``torchok_tpu.native``, loaded. Test processes that run side by side
+    build its library through one shared ``.so.tmp`` path, and a process
+    whose build loses that race latches ``_load_failed`` for good: build it
+    here under a file lock, retrying until the ``.so`` exists, and clear the
+    latch. Fails (never skips) if it still does not load."""
+    cache = jax_native_build._cache_dir()
+    cache.mkdir(parents=True, exist_ok=True)
+    with open(cache / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            for _ in range(5):
+                if jax_native_build.build_io_library() is not None:
+                    break
+                time.sleep(1.0)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    monkeypatch.setattr(jax_native, "_load_failed", False)
+    if jax_native._load() is None:
+        pytest.fail("torchok_tpu.native's library did not build or load (g++ with libpng and "
+                    "libjpeg is needed)")
+    return jax_native
+
+
+def test_png_files_decode_bit_equal_to_libpng(tmp_path, libpng_decoder):
     img = _image()
     rng = np.random.default_rng(1)
     files = {"rgb": img, "gray": img[..., 0], "rgba": np.concatenate([img, img[..., :1]], -1),
@@ -87,7 +115,7 @@ def test_png_files_decode_bit_equal_to_libpng(tmp_path):
     assert len(paths) == 14
     assert set().union(*map(_row_filters, paths)) == {0, 1, 2, 3, 4}
     for path in paths:
-        got, want = native.decode_file(str(path)), jax_native.decode_file(str(path))
+        got, want = native.decode_file(str(path)), libpng_decoder.decode_file(str(path))
         assert got.dtype == np.uint8 and got.shape == want.shape == img.shape[:2] + (4,), path
         np.testing.assert_array_equal(got, want, err_msg=path.name)
 
@@ -102,13 +130,14 @@ def test_png_files_decode_bit_equal_to_libpng(tmp_path):
         native.decode_file(str(tmp_path / "image.bmp"))
 
 
-def test_jpeg_decodes_bit_equal_through_libjpeg(tmp_path):
+def test_jpeg_decodes_bit_equal_through_libjpeg(tmp_path, libpng_decoder):
     for i, quality in enumerate((95, 60)):
         cv2.imwrite(str(tmp_path / f"{i}.jpg"), _image(41, 67, i),
                     [cv2.IMWRITE_JPEG_QUALITY, quality])
         got = native.decode_file(str(tmp_path / f"{i}.jpg"))
         assert got.shape == (41, 67, 3)
-        np.testing.assert_array_equal(got, jax_native.decode_file(str(tmp_path / f"{i}.jpg")))
+        np.testing.assert_array_equal(got,
+                                      libpng_decoder.decode_file(str(tmp_path / f"{i}.jpg")))
 
 
 @pytest.mark.parametrize("fmt", ["rgb", "rgba", "bgr", "gray"])
@@ -292,7 +321,8 @@ def test_toy_painter_equals_cv2_rectangle():
                     np.testing.assert_array_equal(got, want, err_msg=f"{thickness} {w}x{h}")
 
 
-def test_toy_writer_writes_what_gen_toy_detection_writes(tmp_path, monkeypatch):
+def test_toy_writer_writes_what_gen_toy_detection_writes(tmp_path, monkeypatch,
+                                                         libpng_decoder):
     spec_ = importlib.util.spec_from_file_location("gen_toy_detection",
                                                    REPO / "tools" / "gen_toy_detection.py")
     gen = importlib.util.module_from_spec(spec_)
@@ -305,7 +335,8 @@ def test_toy_writer_writes_what_gen_toy_detection_writes(tmp_path, monkeypatch):
     pd.testing.assert_frame_equal(got, want)
     for name in want["image_path"]:
         np.testing.assert_array_equal(native.decode_file(str(tmp_path / "valid" / name)),
-                                      jax_native.decode_file(str(want_root / name)), err_msg=name)
+                                      libpng_decoder.decode_file(str(want_root / name)),
+                                      err_msg=name)
     assert chip_smoke.TOYDET_SPLITS == (("train", 2000, 1), ("valid", 400, 2))
 
 

@@ -124,7 +124,7 @@ def test_gpu_accelerator_raises_without_a_card(monkeypatch, accelerator):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("num_nodes", 2), ("inference_mode", False), ("deterministic", True),
+    ("num_nodes", 2), ("inference_mode", False), ("benchmark", True),
     ("model_parallel_size", 2), ("fast_dev_run", True), ("strategy", "ddp"),
     ("devices", 2)])
 def test_unported_trainer_option_raises(key, value):

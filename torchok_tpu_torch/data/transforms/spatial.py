@@ -1,13 +1,16 @@
 """Spatial transforms (port of ``Resize``, ``CenterCrop``, ``RandomCrop``,
-``FitResize`` and ``PadIfNeeded`` of ``torchok_tpu.data.transforms.spatial``):
-numpy on the host, batched torch on the trainer's device (the last two on the
-host only: their output size follows each image's own). Each moves a
-sample's pixel xyxy boxes on the host (``apply_to_bboxes``: scaled, or
-shifted and clipped to the crop, rows kept so labels stay aligned); on the
-device none does, so none leaves the host for a dataset with boxes.
+``FitResize``, ``PadIfNeeded``, ``ElasticTransform`` and ``GridDistortion``
+of ``torchok_tpu.data.transforms.spatial``): numpy on the host, batched torch
+on the trainer's device (FitResize and PadIfNeeded on the host only: their
+output size follows each image's own). The first five move a sample's pixel
+xyxy boxes on the host (``apply_to_bboxes``: scaled, or shifted and clipped
+to the crop, rows kept so labels stay aligned); on the device none does, so
+none leaves the host for a dataset with boxes. The two warps have no box
+handler: a sample with boxes raises.
 
-The reference resizes with ``cv2.resize``; the port gives cv2's semantics
-without cv2: INTER_LINEAR samples at half-pixel centres with two taps and no
+The warps remap through :mod:`torchok_tpu_torch.ops.warp` (``cv2.remap``
+and ``cv2.GaussianBlur`` in numpy on the host). The reference resizes with
+``cv2.resize``; the port gives cv2's semantics without cv2: INTER_LINEAR samples at half-pixel centres with two taps and no
 antialiasing when shrinking, and an integer image is rounded half up and
 saturated to its dtype; INTER_NEAREST (and every mask) takes
 ``floor(i * src / dst)``. The host path computes that with numpy, the device
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from torchok_tpu_torch.constructor import TRANSFORMS
-from torchok_tpu_torch.data.transforms.base import BaseTransform
+from torchok_tpu_torch.data.transforms.base import BaseTransform, draw_device
+from torchok_tpu_torch.ops import warp
 from torchok_tpu_torch.ops.image import nearest_cv2_indices, resize_bilinear, resize_nearest_cv2
 
 # cv2's interpolation flags, as the recipes spell them
@@ -354,3 +358,182 @@ class PadIfNeeded(BaseTransform):
         b[:, [0, 2]] += l
         b[:, [1, 3]] += t
         return b
+
+
+def _device_remap_batch(batch: Dict[str, torch.Tensor], map_x: torch.Tensor,
+                        map_y: torch.Tensor, applied: torch.Tensor, interpolation: int,
+                        border_mode: int) -> Dict[str, torch.Tensor]:
+    """Remap the NHWC image (and mask) with per-sample maps (N, H, W) where
+    ``applied`` (N,), in float32 (bilinear, or nearest half to even as
+    cv2.remap rounds; the mask always nearest), a constant border filled
+    with 0; an integer image rounded half up and saturated to its dtype."""
+    batch = dict(batch)
+    img = batch["image"]
+    border = warp.BORDERS[border_mode]
+    method = "nearest_even" if interpolation == INTER_NEAREST else "bilinear"
+    keep = applied.to(img.device).view(-1, 1, 1, 1)
+    x = img.float()
+    out = torch.where(keep, warp.remap_sample(x, map_x, map_y, method, border), x)
+    batch["image"] = out if img.is_floating_point() else saturate_int(out, img.dtype)
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[..., None] if mask.ndim == 3 else mask
+        mo = torch.where(keep, warp.remap_sample(m, map_x, map_y, "nearest_even", border), m)
+        batch["mask"] = mo[..., 0] if mask.ndim == 3 else mo
+    return batch
+
+
+class _Remap(BaseTransform):
+    """A warp by a per-sample dense map: ``get_params`` draws the maps on the
+    host, ``draw_batch``/``apply_drawn`` on the device (the same input shape
+    across the batch)."""
+
+    geometric = True
+    device_bbox_safe = False  # no box handler: a sample with boxes raises
+    device_capable = True
+    device_needs_uniform = True
+
+    def __init__(self, interpolation: int = INTER_LINEAR,
+                 border_mode: int = warp.BORDER_REFLECT_101, always_apply: bool = False,
+                 p: float = 0.5):
+        super().__init__(always_apply, p)
+        warp.check_remap_flags(interpolation, border_mode)
+        self.interpolation = interpolation
+        self.border_mode = border_mode
+
+    def apply(self, image, map_x=None, map_y=None, **params):
+        return warp.remap(image, map_x, map_y, self.interpolation, self.border_mode)
+
+    def apply_to_mask(self, mask, map_x=None, map_y=None, **params):
+        return warp.remap(mask, map_x, map_y, INTER_NEAREST, self.border_mode)
+
+    def apply_batch(self, batch, generator):
+        img = batch["image"]
+        return self.apply_drawn(batch, *self.draw_batch(img.shape[:3], generator, img.device))
+
+
+@TRANSFORMS.register_class
+class ElasticTransform(_Remap):
+    """Elastic deformation: a uniform [-1, 1] displacement per pixel and
+    axis, blurred by a Gaussian of ``sigma`` (``int(3 sigma) | 1`` taps,
+    reflect-101) and scaled by ``alpha``. ``alpha_affine`` and ``value`` are
+    accepted and unused, as in the JAX package."""
+
+    def __init__(self, alpha: float = 1.0, sigma: float = 50.0, alpha_affine: float = 50.0,
+                 interpolation: int = INTER_LINEAR, border_mode: int = warp.BORDER_REFLECT_101,
+                 value=None, always_apply: bool = False, p: float = 0.5, **_):
+        super().__init__(interpolation, border_mode, always_apply, p)
+        self.alpha = alpha
+        self.sigma = sigma
+
+    @property
+    def ksize(self) -> int:
+        return int(3 * self.sigma) | 1
+
+    def get_params(self, sample):
+        h, w = sample["image"].shape[:2]
+        dx = self.rng.uniform(-1, 1, (h, w)).astype(np.float32)
+        dy = self.rng.uniform(-1, 1, (h, w)).astype(np.float32)
+        dx = warp.gaussian_blur(dx, self.ksize, self.sigma) * self.alpha
+        dy = warp.gaussian_blur(dy, self.ksize, self.sigma) * self.alpha
+        xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+        return {"map_x": (xs + dx).astype(np.float32), "map_y": (ys + dy).astype(np.float32)}
+
+    def draw_batch(self, shape, generator, device):
+        """Displacements dx, dy (N, H, W) in [-1, 1) before the blur, the
+        gate (N,)."""
+        device = draw_device(generator, device)
+        dx, dy = (torch.rand(tuple(shape), generator=generator, device=device) * 2.0 - 1.0
+                  for _ in range(2))
+        return dx, dy, torch.rand((shape[0],), generator=generator, device=device) < self.p
+
+    def apply_drawn(self, batch, dx, dy, applied):
+        img = batch["image"]
+        h, w = img.shape[1:3]
+        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=img.device),
+                                torch.arange(w, dtype=torch.float32, device=img.device),
+                                indexing="ij")
+        dx, dy = (warp.gaussian_blur_batch(d.to(img.device), self.ksize, self.sigma) * self.alpha
+                  for d in (dx, dy))
+        return _device_remap_batch(batch, xs + dx, ys + dy, applied, self.interpolation,
+                                   self.border_mode)
+
+
+@TRANSFORMS.register_class
+class GridDistortion(_Remap):
+    """Each axis cut into ``num_steps`` cells, each stretched by 1 + a draw
+    from ``distort_limit``; the last partial cell takes the remaining
+    pixels. ``value`` is accepted and unused, as in the JAX package."""
+
+    def __init__(self, num_steps: int = 5, distort_limit: float = 0.3,
+                 interpolation: int = INTER_LINEAR, border_mode: int = warp.BORDER_REFLECT_101,
+                 value=None, always_apply: bool = False, p: float = 0.5, **_):
+        super().__init__(interpolation, border_mode, always_apply, p)
+        self.num_steps = num_steps
+        self.distort_limit = (-distort_limit, distort_limit) \
+            if isinstance(distort_limit, (int, float)) else tuple(distort_limit)
+
+    @property
+    def device_capable(self):
+        return self.num_steps >= 1
+
+    def _axis_map(self, size: int) -> np.ndarray:
+        steps = 1 + self.rng.uniform(*self.distort_limit, self.num_steps + 1)
+        step = size // self.num_steps
+        coords = np.zeros(size, np.float32)
+        prev, x = 0.0, 0
+        for i in range(self.num_steps + 1):
+            start, end = x, min(x + step, size)
+            cur = prev + step * steps[i]
+            coords[start:end] = np.linspace(prev, cur, end - start, endpoint=False)
+            prev, x = cur, end
+        if x < size:
+            coords[x:] = prev
+        return coords
+
+    def get_params(self, sample):
+        h, w = sample["image"].shape[:2]
+        xs = self._axis_map(w)
+        ys = self._axis_map(h)
+        map_x, map_y = np.meshgrid(xs, ys)
+        return {"map_x": map_x.astype(np.float32), "map_y": map_y.astype(np.float32)}
+
+    def draw_batch(self, shape, generator, device):
+        """The cells' distortions along x and along y (N, num_steps + 1), in
+        ``distort_limit``, the gate (N,)."""
+        device = draw_device(generator, device)
+        lo, hi = self.distort_limit
+        ux, uy = (lo + (hi - lo) * torch.rand((shape[0], self.num_steps + 1),
+                                              generator=generator, device=device)
+                  for _ in range(2))
+        return ux, uy, torch.rand((shape[0],), generator=generator, device=device) < self.p
+
+    def _device_axis_map(self, distort: torch.Tensor, size: int) -> torch.Tensor:
+        """:meth:`_axis_map` for every sample: (N, size) coordinates. Cell i
+        spans [i step, min((i + 1) step, size)); within it the coordinate is
+        prev_i + step steps_i offset / length, steps = 1 + distort."""
+        steps = 1 + distort
+        n, s = steps.shape[0], self.num_steps
+        step = size // s
+        if step == 0:  # fewer pixels than cells: the identity, as on the host
+            return torch.arange(size, dtype=torch.float32, device=steps.device).expand(n, size)
+        j = np.arange(size)
+        i = np.minimum(j // step, s)
+        off = (j - i * step).astype(np.float32)
+        length = np.maximum(np.minimum((i + 1) * step, size) - i * step, 1).astype(np.float32)
+        # prev_i = step * (steps_0 + ... + steps_{i-1}), summed in order
+        sums = [torch.zeros_like(steps[:, 0])]
+        for k in range(s):
+            sums.append(sums[-1] + steps[:, k])
+        prev = step * torch.stack(sums, 1)
+        i = torch.from_numpy(i).to(steps.device)
+        return prev[:, i] + step * steps[:, i] * torch.from_numpy(off / length).to(steps.device)
+
+    def apply_drawn(self, batch, ux, uy, applied):
+        img = batch["image"]
+        n, h, w = img.shape[:3]
+        xs = self._device_axis_map(ux.to(img.device), w)
+        ys = self._device_axis_map(uy.to(img.device), h)
+        return _device_remap_batch(batch, xs[:, None, :].expand(n, h, w),
+                                   ys[:, :, None].expand(n, h, w), applied,
+                                   self.interpolation, self.border_mode)

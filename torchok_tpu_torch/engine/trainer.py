@@ -48,10 +48,19 @@ reference: torchok/constructor/runner.py + Lightning internals).
 * A logger (``logger:``) gets the hyperparameters at fit start, the train
   losses every ``log_every_n_steps``, the epoch logs, the test logs and the
   final status.
+* ``deterministic: true`` (Lightning's meaning) turns on
+  ``torch.use_deterministic_algorithms`` and cuDNN's deterministic mode with
+  its benchmark off for the length of a fit, test or predict, and restores
+  the three afterwards; cuBLAS gets ``CUBLAS_WORKSPACE_CONFIG=:4096:8``,
+  which must be in place before the process's first cuBLAS call
+  (:func:`deterministic_algorithms`). An op with no deterministic kernel
+  then raises; none on a recipe's path does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -71,7 +80,7 @@ _HONOURED = frozenset({
     "max_epochs", "min_epochs", "max_steps", "min_steps", "limit_train_batches",
     "limit_val_batches", "check_val_every_n_epoch", "num_sanity_val_steps",
     "log_every_n_steps", "accumulate_grad_batches", "gradient_clip_val",
-    "gradient_clip_algorithm", "steps_per_execution",
+    "gradient_clip_algorithm", "steps_per_execution", "deterministic",
     # read by create_trainer
     "enable_checkpointing", "enable_model_summary", "barebones",
 })
@@ -138,6 +147,51 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
 
+# cuBLAS's reproducible workspace settings (either works; Lightning sets the first)
+CUBLAS_WORKSPACES = (":4096:8", ":16:8")
+
+
+def _cublas_workspace(device: torch.device) -> None:
+    """Give cuBLAS a reproducible workspace, or raise when it is too late:
+    PyTorch reads ``CUBLAS_WORKSPACE_CONFIG`` once, at its first cuBLAS call,
+    so it must be set before the process has used the card."""
+    value = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if device.type != "cuda" or value in CUBLAS_WORKSPACES:
+        return
+    if torch.cuda.is_initialized():
+        raise RuntimeError(
+            f"trainer.deterministic=true needs CUBLAS_WORKSPACE_CONFIG={CUBLAS_WORKSPACES[0]} "
+            "before the process's first cuBLAS call, and this process has already used the "
+            f"card with it {'unset' if value is None else 'set to ' + repr(value)}: it is too "
+            "late to set it here; set it in the environment before starting Python")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACES[0]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(enabled: Optional[bool], device: torch.device):
+    """``trainer.deterministic`` as Lightning applies it: with ``enabled``,
+    ``torch.use_deterministic_algorithms(True)`` (an op with no deterministic
+    kernel raises; no ``warn_only``), ``cudnn.deterministic`` on and
+    ``cudnn.benchmark`` off, and cuBLAS's workspace fixed; the three flags
+    are restored on exit (the environment variable stays: PyTorch has read
+    it). ``None`` and ``False`` change nothing."""
+    if not enabled:
+        yield
+        return
+    _cublas_workspace(device)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+
+
 def resolve_device(accelerator: Optional[str]) -> torch.device:
     """trainer.accelerator -> torch.device; raises when the card is absent."""
     acc = str(accelerator or "auto").lower()
@@ -184,6 +238,7 @@ class Trainer:
         # Lightning default: 2 sanity batches before training (explicit 0 disables)
         self.num_sanity_val_steps = 2 if sanity is None else int(sanity)
         self.device = resolve_device(tp.get("accelerator"))
+        self.deterministic = bool(tp.get("deterministic"))
 
         # populated during fit / test / predict
         self.state: Optional[TrainState] = None
@@ -367,7 +422,8 @@ class Trainer:
     def fit(self, task, ckpt_path: Optional[str] = None) -> None:
         self.task = task
         try:
-            self._fit_inner(task, ckpt_path)
+            with deterministic_algorithms(self.deterministic, self.device):
+                self._fit_inner(task, ckpt_path)
         except BaseException as e:  # noqa: BLE001 — callbacks see any failure, then it is raised
             for cb in self.callbacks:
                 cb.on_exception(self, task, e)
@@ -589,10 +645,11 @@ class Trainer:
 
     def test(self, task, ckpt_path: Optional[str] = None) -> Dict[str, float]:
         loaders = task.test_dataloader()
-        eval_step = self._prepare(task, loaders, ckpt_path)
         try:
-            logs = self._run_eval(task, eval_step, loaders, Phase.TEST,
-                                  limit=self.limit_test_batches)
+            with deterministic_algorithms(self.deterministic, self.device):
+                eval_step = self._prepare(task, loaders, ckpt_path)
+                logs = self._run_eval(task, eval_step, loaders, Phase.TEST,
+                                      limit=self.limit_test_batches)
         finally:
             _close(loaders)
         self.callback_metrics = dict(logs)
@@ -605,17 +662,18 @@ class Trainer:
 
     def predict(self, task, ckpt_path: Optional[str] = None) -> List[Dict[str, np.ndarray]]:
         loaders = task.predict_dataloader()
-        eval_step = self._prepare(task, loaders, ckpt_path)
-        self.state.model.eval()
         results = []
         try:
-            for loader in loaders:
-                n_batches = self._limit(len(loader), self.limit_predict_batches)
-                for bidx, batch in enumerate(loader):
-                    if bidx >= n_batches:
-                        break
-                    outputs, _ = eval_step(batch)
-                    results.append({k: _map_tensors(_host, v) for k, v in outputs.items()})
+            with deterministic_algorithms(self.deterministic, self.device):
+                eval_step = self._prepare(task, loaders, ckpt_path)
+                self.state.model.eval()
+                for loader in loaders:
+                    n_batches = self._limit(len(loader), self.limit_predict_batches)
+                    for bidx, batch in enumerate(loader):
+                        if bidx >= n_batches:
+                            break
+                        outputs, _ = eval_step(batch)
+                        results.append({k: _map_tensors(_host, v) for k, v in outputs.items()})
         finally:
             _close(loaders)
         return results
