@@ -119,6 +119,14 @@
      step 288, the reference's CSV rows, status ``success``, one best
      checkpoint and ``last.ckpt``, and ``+mode=test`` from the best
      checkpoint within 1e-3 of its logged accuracy; 0 hand-written launches;
+   * ``configs/stablehlo_infer.yaml`` (``STABLEHLO_INFER_RECIPE``) through
+     ``ONNXTask``: the shapes north star's best checkpoint exported with
+     ``export_task_model`` and tested with the recipe's data and metrics on
+     the shapes VALID images written as a CIFAR-10 test batch
+     (``write_cifar_batches``); its Accuracy and F1Score equal to the live
+     task's test on the same files to 1e-9. Then ``export_task_model`` on
+     the swinv2_tiny slice's task must raise ``NotImplementedError`` naming
+     K1 (its eval forward launches it);
    * resume on K1 and K2: swinv2_tiny's smoke train config for 3 one-step
      epochs twice, and for 2 then resumed from ``last.ckpt`` for the third;
      exact K1 and K2 counts in each run, and the resumed run's parameters
@@ -164,7 +172,10 @@
      toy set of ``tools/gen_toy_detection.py`` written first without cv2 or
      pandas (``write_toy_detection``: the same draws, ``paint_rectangle``,
      a zlib PNG writer, a csv module ``ann.csv``), then resnet18 + FPN +
-     FCOSHead at 96x96, bs 32, f32, the HorizontalFlip on the host:
+     FCOSHead at 96x96, bs 32, f32, the HorizontalFlip on the host, under
+     ``trainer.deterministic=true`` (``FCOS_PHASE_OVERRIDES``: the recipe's
+     training is chaotic and spikes now and then in both packages, so a run
+     is one draw; ``CUBLAS_WORKSPACE_CONFIG`` is set as the script starts):
      valid/map50 >= 0.9772 - 0.05 at step 496, map50 by epoch, and the last
      validation's map50 recounted in numpy from the padded arrays the meter
      was given (``witness_map50``, to 1e-9); 0 hand-written launches;
@@ -227,20 +238,50 @@
      tensor cores), the named parameters moved, each parameter group's
      learning rate printed, then its f32 head outputs (every decoder
      layer's logits and boxes) on the card within 1e-3 of the CPU's;
-   * before the DETR draws are joined, the TRAIN pipeline of
-     ``configs/segmentation_sweet_pepper.yaml`` (``SWEET_PEPPER_RECIPE``)
-     verbatim: flips, Compose(p 0.5) of PadIfNeeded and CenterCrop, two
+   * in a process of their own (``chip_smoke.py --side-phases``,
+     ``SIDE_PHASES``), started once the op paths are done and joined before
+     the DETR draws (its output printed then), two phases. First
+     ``configs/segmentation_sweet_pepper.yaml``
+     (``SWEET_PEPPER_RECIPE``) verbatim but for its cuts: its TRAIN
+     pipeline (flips, Compose(p 0.5) of PadIfNeeded and CenterCrop, two
      OneOf(p 1) over ElasticTransform, GridDistortion, GaussNoise and
-     ColorJitter, then Resize, Normalize and ToTensorV2, with the recipe's
-     hrnet_w18 + HRNetSegmentationNeck + SegmentationHead (3 classes,
-     256x256, bs 8, f32, CE + Dice) on the ``SweetPepperShapes`` stand-in in
+     ColorJitter, then Resize, Normalize and ToTensorV2), hrnet_w18 +
+     HRNetSegmentationNeck + SegmentationHead (3 classes, 256x256, bs 8,
+     f32, CE + Dice) and ModelCheckpointWithOnnx, reading ``SweetPepper``
+     from PNG images and gray PNG masks with ``train.csv`` and
+     ``valid.csv`` that the script writes (``write_sweet_pepper_tree``), in
      4 loader worker processes, one epoch of 40 steps and a validation
-     (random weights, CSVLogger, no ModelCheckpointWithOnnx; the cuts
-     printed): first each new device path on a card batch against its CPU
-     path with the same draws, the host ms a sample of each transform, then
-     a finite loss, every parameter moved, no cv2, jax or torchok_tpu in
-     this process or a loader worker, train img/s and peak memory; 0
-     hand-written launches.
+     (random weights, CSVLogger; the cuts printed): first each new device
+     path on a card batch against its CPU path with the same draws, the
+     host ms a sample of each transform, then a finite loss, every
+     parameter moved, no cv2, jax or torchok_tpu in this process or a
+     loader worker, train img/s, peak memory, and an artifact beside each
+     checkpoint, replaying the VALID images at batch 64 (and the first 8 at
+     batch 1) within 1e-5 of the live eval forward's largest magnitude
+     (``check_artifacts``); 0 hand-written launches;
+   * then the three SOP recipes at full width (``PAIRWISE_SOP_RECIPE``:
+     resnet18 224x224, bs 64, LinearHead 512 normalised, ContrastiveLoss
+     over the relevance of 11318 classes; ``TRIPLET_SOP_RECIPE``: bs 4
+     triplets, TripletMarginLoss; ``ARCFACE_SOP_RECIPE``: semnasnet_100
+     256x256, bs 64, PoolingLinear, ArcFaceHead of 11318 classes,
+     FreezeUnfreeze, ModelCheckpointWithOnnx), each equal to its YAML but
+     for its cuts (random weights, the data folder, one epoch of
+     ``SOP_LIMIT_TRAIN`` steps, CSVLogger), on a SOP tree the script writes
+     (``write_sop_tree``: PNGs of 200 to 400 px with class-dependent
+     stripes, SOP's three ``.txt`` files with its label offsets): finite
+     losses; every parameter that trains moved (under arcface_sop's
+     epoch-0 policy the frozen backbone on its decay-only Nesterov SGD
+     trajectory, its BatchNorm statistics bit-equal); HitAtKMeter equal to
+     a numpy recount (f64 inner products, no shared search) to 1e-9 on the
+     run's embeddings where f32 resolves their directions (arcface's
+     random frozen backbone gives one direction: its reading is printed)
+     and on them centred (``check_hit``), and arcface's train Accuracy on
+     the run's logits and again with half their targets planted at the
+     argmax (the run's own reading is 0); an
+     artifact beside every checkpoint (the script exports those of the two
+     recipes whose plain ModelCheckpoint writes none), each replayed as
+     above; train and eval img/s, peak memory, seconds per export and the
+     largest replay difference; 0 hand-written launches.
    Each phase is stamped with the script's seconds so far.
 6. Prints ``{"kernels": [...]}`` (K1 to K9; K1/K2's times are summed over
    one swinv2_tiny_window8 forward or backward, as before the other windows ran, the K3 to K5 times
@@ -623,6 +664,18 @@ FCOS_RECIPE = {
 # the short budget of tools/north_star_baselines.json ("fcos"), held one-sided
 # to valid/map50 >= 0.9772 - 0.05 as tools/check_north_stars.py does
 FCOS_OVERRIDES = ["trainer.max_epochs=8"]
+# the smoke's runs: reproducible. The recipe's training is chaotic (two fits
+# from one start over the same batches part by rounding, 2e-7 in the first
+# loss, growing 30 to 60 times a step) and SGD at lr 0.01 with no warm-up or
+# clipping spikes now and then, in the JAX package as in the port
+# (tools/compare_fcos_fit_jax.py, tools/fcos_trajectories_cpu.py): an epoch's
+# map50 can fall to 0.33 to 0.84 and recover, and where that falls on the
+# last epoch (0.769698 once on the card) the gate fails. Under the mode the
+# smoke reads one draw, map50 by epoch [0.889896, 0.949283, 0.913251,
+# 0.965117, 0.549846, 0.965321, 0.973471, 0.97469]: its dip at epoch 4 lies
+# in the weights (tools/probe_fcos_dip.py), which both packages validate to
+# the same 0.5498460073157077 (tools/compare_fcos_dip_jax.py)
+FCOS_PHASE_OVERRIDES = ["+trainer.deterministic=true"]
 FCOS_REFERENCE = 0.9772
 FCOS_TOLERANCE = 0.05
 # tools/gen_toy_detection.py's two splits: (split, images, seed)
@@ -944,63 +997,337 @@ SWEET_PEPPER_TRAIN, SWEET_PEPPER_VALID = 320, 64
 SWEET_PEPPER_STEPS = SWEET_PEPPER_TRAIN // 8
 
 
-def sweet_pepper_config(log_dir: str):
+def _data_folders(cfg, folder):
+    """Point every dataset of ``cfg`` at ``folder``."""
+    for loaders in cfg["data"].values():
+        for loader in loaders:
+            loader["dataset"]["params"]["data_folder"] = folder
+
+
+def sweet_pepper_config(log_dir: str, data_folder: str):
     """The sweet-pepper recipe as the smoke runs it, and the list of its
-    cuts: its TRAIN ``augment`` and ``transform`` and its model verbatim,
-    but random weights, the ``SweetPepperShapes`` stand-in for the data (no
-    download), one epoch, CSVLogger under ``log_dir`` (the card machine has
-    no tensorboardX) and no ModelCheckpointWithOnnx (not ported yet)."""
+    cuts: its data pipeline, model and callbacks verbatim (ModelCheckpointWithOnnx
+    included), but random weights, the files :func:`write_sweet_pepper_tree`
+    wrote under ``data_folder``, one epoch and CSVLogger under ``log_dir``
+    (the card machine has no tensorboardX)."""
     cfg = copy.deepcopy(SWEET_PEPPER_RECIPE)
     cfg["task"]["params"]["backbone_params"]["pretrained"] = False
-    for phase, train, n in (("TRAIN", True, SWEET_PEPPER_TRAIN),
-                            ("VALID", False, SWEET_PEPPER_VALID)):
-        dataset = cfg["data"][phase][0]["dataset"]
-        dataset["name"] = "SweetPepperShapes"
-        dataset["params"] = {"train": train, "num_samples": n, "image_size": [256, 256]}
+    _data_folders(cfg, data_folder)
     cfg["trainer"]["max_epochs"] = 1
     cfg["logger"].update(name="CSVLogger", log_dir=log_dir)
     del cfg["hydra"]
-    cfg["callbacks"] = [c for c in cfg["callbacks"] if c["name"] != "ModelCheckpointWithOnnx"]
     cuts = ["task.params.backbone_params.pretrained=false (random weights from the seed)",
-            f"SweetPepper -> SweetPepperShapes ({SWEET_PEPPER_TRAIN} train and "
-            f"{SWEET_PEPPER_VALID} valid 256x256 uint8 images, no download)",
-            "trainer.max_epochs=1", "logger TensorBoardLogger -> CSVLogger",
-            "callback ModelCheckpointWithOnnx left out (not ported yet)"]
+            f"data_folder -> {data_folder} ({SWEET_PEPPER_TRAIN} train and {SWEET_PEPPER_VALID} "
+            "valid 256x256 PNG images with gray PNG masks, written by the script; nothing "
+            "downloaded)",
+            "trainer.max_epochs=1", "logger TensorBoardLogger -> CSVLogger"]
     return cfg, cuts
 
 
-_SWEET_PEPPER_DATASET = []
+def sweet_pepper_arrays(n: int, train: bool, size: int = 256):
+    """Images and 3-class masks of the written sweet-pepper set: the shapes
+    segmentation set's (seeded numpy) with its ten pattern labels folded into
+    the recipe's two object classes (odd patterns 1, even 2; background 0)."""
+    import numpy as np
+    from torchok_tpu_torch.data.datasets.examples.synthetic import (
+        SyntheticShapesSegmentationDataset)
+    data = SyntheticShapesSegmentationDataset(None, num_samples=n, image_size=(size, size),
+                                              train=train)
+    return data.images, np.where(data.masks > 0, 2 - data.masks % 2, 0).astype(np.uint8)
 
 
-def sweet_pepper_dataset():
-    """``SweetPepperShapes``, the smoke's stand-in for the SweetPepper set:
-    ``SyntheticShapesSegmentationDataset`` with its ten pattern labels folded
-    into the recipe's two object classes (odd patterns 1, even 2; background
-    0). Made and registered at first use, so that this script imports the
-    package only once it has checked that it is there."""
-    if not _SWEET_PEPPER_DATASET:
-        import numpy as np
-        from torchok_tpu_torch.constructor import DATASETS
-        from torchok_tpu_torch.data.datasets.examples.synthetic import (
-            SyntheticShapesSegmentationDataset)
+def write_sweet_pepper_tree(root, train: int = SWEET_PEPPER_TRAIN, valid: int = SWEET_PEPPER_VALID,
+                            size: int = 256):
+    """``<root>/sweet_pepper/{train,valid}.csv`` (columns ``image``, ``mask``)
+    and the files they name: RGB PNG images and gray PNG masks of
+    :func:`sweet_pepper_arrays`, written without cv2 or pandas (stored, zlib
+    level 0: quick to write and to read)."""
+    import csv
+    from torchok_tpu_torch import native
+    base = os.path.join(root, "sweet_pepper")
+    for split, n, train_split in (("train", train, True), ("valid", valid, False)):
+        os.makedirs(os.path.join(base, split, "images"), exist_ok=True)
+        os.makedirs(os.path.join(base, split, "masks"), exist_ok=True)
+        images, masks = sweet_pepper_arrays(n, train_split, size)
+        rows = []
+        for i, (image, mask) in enumerate(zip(images, masks)):
+            row = {"image": f"{split}/images/{i:04d}.png", "mask": f"{split}/masks/{i:04d}.png"}
+            for key, pixels in (("image", image), ("mask", mask)):
+                with open(os.path.join(base, row[key]), "wb") as f:
+                    f.write(native.encode_png(pixels, level=0))
+            rows.append(row)
+        with open(os.path.join(base, f"{split}.csv"), "w", newline="") as f:
+            writer = csv.DictWriter(f, ["image", "mask"])
+            writer.writeheader()
+            writer.writerows(rows)
+    return base
 
-        class SweetPepperShapes(SyntheticShapesSegmentationDataset):
-            def __init__(self, *args, **kwargs):
-                super().__init__(*args, **kwargs)
-                self.masks = np.where(self.masks > 0, 2 - self.masks % 2, 0)
 
-        SweetPepperShapes.__module__, SweetPepperShapes.__qualname__ = __name__, \
-            "SweetPepperShapes"
-        DATASETS.register_class(SweetPepperShapes)
-        _SWEET_PEPPER_DATASET.append(SweetPepperShapes)
-    return _SWEET_PEPPER_DATASET[0]
+# ---------------------------------------------------------------- SOP recipes
+_SOP_FOLDER = "${oc.env:HOME}/.cache/torchok_tpu/sop/data"
+_SOP_LOGS = "${logger.log_dir}/${logger.experiment_name}/${logger.timestamp}"
+_SOP_METER = {"name": "HitAtKMeter",
+              "params": {"k": 1, "dataset_type": "classification", "normalize_vectors": True,
+                         "search_batch_size": 256}}
+_SOP_CALLBACKS_TAIL = [{"name": "FinalizeLogger"},
+                       {"name": "TQDMProgressBar", "params": {"refresh_rate": 5}}]
+_SOP_CHECKPOINT = {"dirpath": _SOP_LOGS, "monitor": "valid/HitAtKMeter", "save_top_k": 2,
+                   "save_last": True, "mode": "min", "save_weights_only": False}
 
 
-def __getattr__(name):
-    # a loader worker re-imports this script and unpickles the stand-in by name
-    if name == "SweetPepperShapes":
-        return sweet_pepper_dataset()
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def _sop_transform(size):
+    return [{"name": "Resize", "params": {"height": size, "width": size}},
+            {"name": "Normalize", "params": {"mean": [0.485, 0.456, 0.406],
+                                             "std": [0.229, 0.224, 0.225]}},
+            {"name": "ToTensorV2"}]
+
+
+def _sop_augment(size, oneofs):
+    return [{"name": "HorizontalFlip"}, {"name": "VerticalFlip"},
+            {"name": "Compose", "params": {"p": 0.5, "transforms": [
+                {"name": "PadIfNeeded", "params": {"min_height": size, "min_width": size}},
+                {"name": "CenterCrop", "params": {"height": size, "width": size}}]}}] + \
+        [copy.deepcopy(_SWEET_PEPPER_ONEOF) for _ in range(oneofs)]
+
+
+def _sop_loader(batch, workers, train, name, params, size, oneofs=0):
+    dataset = {"name": name, "params": {**params, "download": True, "data_folder": _SOP_FOLDER},
+               "transform": _sop_transform(size)}
+    if oneofs:
+        dataset["augment"] = _sop_augment(size, oneofs)
+    return [{"dataloader": {"batch_size": batch, "num_workers": workers, "drop_last": train,
+                            "shuffle": train}, "dataset": dataset}]
+
+
+def _sop_task(name, backbone, size, **params):
+    return {"name": name, "params": {
+        "backbone_name": backbone, "backbone_params": {"pretrained": True, "in_channels": 3},
+        **params, "inputs": [{"shape": [3, size, size], "dtype": "float32"}]}}
+
+
+def _sop_logger(log_dir, experiment):
+    return {"log_dir": log_dir, "experiment_name": experiment,
+            "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}", "name": "TensorBoardLogger"}
+
+
+_LINEAR_HEAD = {"pooling_name": "Pooling", "head_name": "LinearHead",
+                "head_params": {"out_channels": 512, "normalize": True}}
+# configs/pairwise_sop.yaml, configs/triplet_sop.yaml and
+# configs/representation_arcface_sop.yaml (a CPU test holds each equal)
+PAIRWISE_SOP_RECIPE = {
+    "task": _sop_task("PairwiseLearnTask", "resnet18", 224, **_LINEAR_HEAD, num_classes=11318),
+    "joint_loss": {"losses": [{"name": "ContrastiveLoss", "params": {"margin": 1.0},
+                               "mapping": {"emb1": "emb1", "emb2": "emb2", "R": "R"}}]},
+    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}},
+                      "scheduler": {"name": "OneCycleLR", "params": {
+                          "epochs": 20, "steps_per_epoch": 100, "max_lr": 0.0001,
+                          "pct_start": 0.1}}}],
+    "data": {"TRAIN": _sop_loader(64, 4, True, "SOP", {"train": True, "input_dtype": "float32"},
+                                  224, oneofs=1),
+             "VALID": _sop_loader(64, 4, False, "SOP", {"train": False}, 224)},
+    "trainer": {"accelerator": "auto", "max_epochs": 30, "log_every_n_steps": 10},
+    "logger": _sop_logger("${oc.env:HOME}/.cache/torchok_tpu/sop/logs", "pairwise_resnet18"),
+    "hydra": {"run": {"dir": _SOP_LOGS}},
+    "callbacks": [{"name": "ModelCheckpoint", "params": dict(_SOP_CHECKPOINT)},
+                  *copy.deepcopy(_SOP_CALLBACKS_TAIL)],
+    "metrics": [{**copy.deepcopy(_SOP_METER),
+                 "mapping": {"vectors": "emb1", "group_labels": "target"}, "phases": ["VALID"]}],
+}
+TRIPLET_SOP_RECIPE = {
+    "task": {**_sop_task("TripletLearnTask", "resnet18", 224, **_LINEAR_HEAD),
+             "compute_loss_on_valid": False},
+    "joint_loss": {"losses": [{"name": "TripletMarginLoss", "mapping": {
+        "anchor": "anchor", "positive": "positive", "negative": "negative"}}]},
+    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}},
+                      "scheduler": {"name": "ExponentialLR", "params": {"gamma": 0.97}}}],
+    "data": {"TRAIN": _sop_loader(4, 4, True, "TRIPLET_SOP",
+                                  {"train": True, "input_dtype": "float32"}, 224),
+             "VALID": _sop_loader(64, 4, False, "SOP",
+                                  {"train": False, "input_dtype": "float32"}, 224)},
+    "trainer": {"accelerator": "auto", "max_epochs": 2, "log_every_n_steps": 10},
+    "logger": _sop_logger("${oc.env:HOME}/.cache/torchok_tpu/sop/logs", "triplet_resnet18"),
+    "hydra": {"run": {"dir": _SOP_LOGS}},
+    "callbacks": [{"name": "ModelCheckpoint", "params": dict(_SOP_CHECKPOINT)},
+                  *copy.deepcopy(_SOP_CALLBACKS_TAIL)],
+    "metrics": [{**copy.deepcopy(_SOP_METER),
+                 "mapping": {"vectors": "embeddings", "group_labels": "target"},
+                 "phases": ["VALID"]}],
+}
+ARCFACE_SOP_RECIPE = {
+    "task": {**_sop_task("ClassificationTask", "semnasnet_100", 256,
+                         pooling_name="PoolingLinear", pooling_params={"out_channels": 512},
+                         head_name="ArcFaceHead", head_params={"num_classes": 11318}),
+             "compute_loss_on_valid": False},
+    "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
+                               "mapping": {"input": "prediction", "target": "target"}}]},
+    "optimization": [{"optimizer": {"name": "SGD", "params": {
+        "lr": 0.001, "momentum": 0.9, "nesterov": True, "weight_decay": 0.00005}}}],
+    "data": {"TRAIN": _sop_loader(64, 4, True, "SOP", {"input_dtype": "float32", "train": True},
+                                  256, oneofs=2),
+             "VALID": _sop_loader(64, 16, False, "SOP",
+                                  {"input_dtype": "float32", "train": False}, 256)},
+    "trainer": {"accelerator": "auto", "max_epochs": 30, "precision": 32,
+                "num_sanity_val_steps": 0},
+    "logger": _sop_logger("${oc.env:HOME}/.cache/torchok_tpu/sop/logs/", "semnasnet_100"),
+    "hydra": {"run": {"dir": _SOP_LOGS}},
+    "callbacks": [
+        {"name": "FreezeUnfreeze", "params": {"freeze_modules": [
+            {"module_name": "backbone", "epoch": 2},
+            {"module_name": "backbone", "stage": 1},
+            {"module_name": "backbone", "module_class": "_BatchNorm", "bn_requires_grad": False,
+             "bn_track_running_stats": False},
+            {"module_name": "", "module_class": "Dropout"}]}},
+        {"name": "ModelCheckpointWithOnnx",
+         "params": {**_SOP_CHECKPOINT, "export_to_onnx": True, "remove_head": True}},
+        *copy.deepcopy(_SOP_CALLBACKS_TAIL)],
+    "metrics": [{"name": "Accuracy", "mapping": {"preds": "prediction", "target": "target"},
+                 "phases": ["TRAIN"]},
+                {**copy.deepcopy(_SOP_METER),
+                 "mapping": {"vectors": "embeddings", "group_labels": "target"},
+                 "phases": ["VALID"]}],
+}
+SOP_RECIPES = {"pairwise_sop": PAIRWISE_SOP_RECIPE, "triplet_sop": TRIPLET_SOP_RECIPE,
+               "representation_arcface_sop": ARCFACE_SOP_RECIPE}
+# the smoke's cut: one epoch of these many steps of each
+SOP_LIMIT_TRAIN = {"pairwise_sop": 3, "triplet_sop": 8, "representation_arcface_sop": 3}
+# the written SOP tree: classes (train, test), images a class, triplets
+SOP_CLASSES = (40, 32)
+SOP_PER_CLASS = 8
+SOP_TRIPLETS = 100
+SOP_HEADER = ["image_id", "class_id", "super_class_id", "path"]
+# the tolerance of an artifact's replay: of the live eval forward's largest magnitude
+REPLAY_TOLERANCE = 1e-5
+# an artifact replays every VALID image at batch 64 and the first these many
+# one at a time (a batch of 1 runs as two copies: one graph, one image apart)
+REPLAY_SINGLES = 8
+
+
+def sop_config(recipe: str, data_folder: str, log_dir: str):
+    """SOP recipe ``recipe`` as the smoke runs it, and the list of its cuts:
+    its data pipeline, model, optimizer and callbacks verbatim, but random
+    weights, the files :func:`write_sop_tree` wrote under ``data_folder``,
+    one epoch of ``SOP_LIMIT_TRAIN[recipe]`` steps, CSVLogger under
+    ``log_dir``."""
+    cfg = copy.deepcopy(SOP_RECIPES[recipe])
+    cfg["task"]["params"]["backbone_params"]["pretrained"] = False
+    _data_folders(cfg, data_folder)
+    cfg["trainer"].update(max_epochs=1, limit_train_batches=SOP_LIMIT_TRAIN[recipe])
+    cfg["logger"].update(name="CSVLogger", log_dir=log_dir)
+    del cfg["hydra"]
+    cuts = ["task.params.backbone_params.pretrained=false (random weights from the seed)",
+            f"data_folder -> {data_folder} (a SOP tree written by the script, nothing "
+            "downloaded)", "trainer.max_epochs=1",
+            f"trainer.limit_train_batches={SOP_LIMIT_TRAIN[recipe]}",
+            "logger TensorBoardLogger -> CSVLogger"]
+    return cfg, cuts
+
+
+def sop_image(label: int, rng, sizes=(200, 400)):
+    """The pixels of one image of class ``label``: stripes whose two colours,
+    angle and period the class fixes, at a random size of ``sizes`` a side,
+    with a random phase and additive noise."""
+    import numpy as np
+    h, w = (int(v) for v in rng.integers(sizes[0], sizes[1] + 1, 2))
+    klass = np.random.default_rng([7, label])
+    colours = klass.integers(0, 256, (2, 3)).astype(np.int16)
+    angle, period = klass.uniform(0, np.pi), klass.uniform(8, 40)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    wave = np.sin((xx * np.cos(angle) + yy * np.sin(angle)) * (2 * np.pi / period)
+                  + rng.uniform(0, 2 * np.pi))
+    image = np.where(wave[..., None] > 0, colours[0], colours[1])
+    image = image + rng.integers(-12, 13, (h, w, 1), dtype=np.int16)
+    return np.clip(image, 0, 255).astype(np.uint8)
+
+
+def write_sop_tree(root, seed: int = 0, classes=SOP_CLASSES, per_class: int = SOP_PER_CLASS,
+                   triplets: int = SOP_TRIPLETS, sizes=(200, 400)):
+    """``<root>/Stanford_Online_Products`` as SOP lays it out, without cv2 or
+    pandas: ``Ebay_train.txt`` (class ids from 1) and ``Ebay_test.txt``
+    (from 11319), space-separated with SOP's header, the PNGs of
+    :func:`sop_image` they name (``per_class`` a class, in class order;
+    stored, zlib level 0), and
+    ``Ebay_triplets.txt`` (``anchor positive negative``) of ``triplets``
+    train triplets. Returns the number of PNGs written."""
+    import numpy as np
+    from torchok_tpu_torch import native
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "Stanford_Online_Products")
+    image_id, by_class = 1, {}
+    for split, n_classes, first in (("train", classes[0], 1), ("test", classes[1], 11319)):
+        lines = [" ".join(SOP_HEADER)]
+        for class_id in range(first, first + n_classes):
+            os.makedirs(os.path.join(base, f"class_{class_id:05d}"), exist_ok=True)
+            for _ in range(per_class):
+                path = f"class_{class_id:05d}/{image_id:06d}.png"
+                with open(os.path.join(base, path), "wb") as f:
+                    f.write(native.encode_png(sop_image(class_id, rng, sizes), level=0))
+                lines.append(f"{image_id} {class_id} {class_id % 12 + 1} {path}")
+                by_class.setdefault(split, {}).setdefault(class_id, []).append(path)
+                image_id += 1
+        with open(os.path.join(base, f"Ebay_{split}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    train = by_class["train"]
+    ids = sorted(train)
+    lines = ["anchor positive negative"]
+    for _ in range(triplets):
+        pos_class, neg_class = rng.choice(ids, 2, replace=False)
+        anchor, positive = rng.choice(train[pos_class], 2, replace=False)
+        lines.append(f"{anchor} {positive} {rng.choice(train[neg_class])}")
+    with open(os.path.join(base, "Ebay_triplets.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return image_id - 1
+
+
+# configs/stablehlo_infer.yaml (a CPU test holds the two equal)
+_CIFAR_FOLDER = "${oc.env:HOME}/.cache/torchok_tpu/cifar10/data"
+_INFER_TRANSFORM = [{"name": "Resize", "params": {"height": 32, "width": 32}},
+                    {"name": "Normalize", "params": {"mean": [0.485, 0.456, 0.406],
+                                                     "std": [0.229, 0.224, 0.225]}},
+                    {"name": "ToTensorV2"}]
+STABLEHLO_INFER_RECIPE = {
+    "task": {"name": "ONNXTask", "params": {
+        "path_to_onnx": "<onnx_path>", "providers": ["CUDAExecutionProvider"],
+        "keys_mapping_onnx2dataset": {"input.1": "image"}}},
+    "data": {
+        "TEST": [{"dataloader": {"batch_size": 8, "num_workers": 4, "drop_last": False,
+                                 "shuffle": False},
+                  "dataset": {"name": "CIFAR10", "params": {
+                      "train": False, "download": True, "data_folder": _CIFAR_FOLDER},
+                      "transform": copy.deepcopy(_INFER_TRANSFORM)}}],
+        "PREDICT": [{"dataloader": {"batch_size": 8, "num_workers": 1, "drop_last": False,
+                                    "shuffle": False},
+                     "dataset": {"name": "CIFAR10", "params": {
+                         "train": False, "download": True, "test_mode": True,
+                         "data_folder": _CIFAR_FOLDER},
+                         "transform": copy.deepcopy(_INFER_TRANSFORM)}}]},
+    "trainer": {"accelerator": "gpu", "max_epochs": 1},
+    "logger": {"log_dir": "${oc.env:HOME}/.cache/torchok_tpu/cifar10/logs",
+               "experiment_name": "cifar10", "timestamp": "${now:%Y-%m-%d}/${now:%H-%M-%S}",
+               "name": "TensorBoardLogger"},
+    "hydra": {"run": {"dir": "${logger.log_dir}/${logger.experiment_name}/${logger.timestamp}"}},
+    "callbacks": [{"name": "FinalizeLogger"},
+                  {"name": "TQDMProgressBar", "params": {"refresh_rate": 5}}],
+    "metrics": [{"name": "Accuracy", "mapping": {"preds": "<onnx_output>", "target": "target"}},
+                {"name": "F1Score", "mapping": {"preds": "<onnx_output>", "target": "target"}}],
+}
+
+
+def stablehlo_infer_config(artifact: str, data_folder: str, log_dir: str):
+    """``configs/stablehlo_infer.yaml`` as the smoke runs it, and its cuts:
+    the placeholders filled (``<onnx_path>`` the artifact, ``<onnx_output>``
+    ``prediction``), the CIFAR-10 folder the script wrote, CSVLogger."""
+    cfg = copy.deepcopy(STABLEHLO_INFER_RECIPE)
+    cfg["task"]["params"]["path_to_onnx"] = artifact
+    for metric in cfg["metrics"]:
+        metric["mapping"]["preds"] = "prediction"
+    _data_folders(cfg, data_folder)
+    cfg["logger"].update(name="CSVLogger", log_dir=log_dir)
+    del cfg["hydra"]
+    cuts = [f"<onnx_path> -> {artifact}", "<onnx_output> -> prediction",
+            f"data_folder -> {data_folder} (the shapes VALID set as a CIFAR-10 test batch)",
+            "CIFAR10's md5 of each batch file -> none (the written files are not CIFAR-10's)",
+            "logger TensorBoardLogger -> CSVLogger"]
+    return cfg, cuts
 
 
 def modules_loaded(names=("cv2", "jax", "torchok_tpu")):
@@ -2796,7 +3123,8 @@ def run_shapes_recipe():
     the reference's accuracy, step count and CSV rows, the status, one best
     checkpoint and ``last.ckpt``, then ``+mode=test`` from the best
     checkpoint reproducing its epoch's accuracy. ResNet-18 reaches no
-    hand-written kernel (nor does the JAX one a Pallas kernel)."""
+    hand-written kernel (nor does the JAX one a Pallas kernel). Returns the
+    best checkpoint's ``state_dict``."""
     import csv
     import glob
     import tempfile
@@ -2865,6 +3193,7 @@ def run_shapes_recipe():
             fail(f"shapes recipe: +mode=test gives {tested:.6f}, the checkpoint's epoch logged "
                  f"{logged:.6f}")
     print(f"shapes recipe phase: {time.perf_counter() - start:.1f} s", flush=True)
+    return saved["state_dict"]
 
 
 def recall_bounds(targets, k):
@@ -3301,6 +3630,8 @@ def capture_metric_inputs(name):
     update, compute, seen, kept = meter.update, meter.compute, [], {}
 
     def host(d):
+        if not isinstance(d, dict):
+            return np.asarray(d.detach().cpu().numpy())
         return {k: np.asarray(v.detach().cpu().numpy()) for k, v in d.items()}
 
     def keep_inputs(self, state, preds, target, **kwargs):
@@ -3337,7 +3668,8 @@ def run_fcos_recipe(toy_root):
     disk: the toy set under ``toy_root``, written first as
     ``tools/gen_toy_detection.py`` writes it (:func:`write_toy_detection`),
     then resnet18 + FPN + FCOSHead at 96x96, f32, 4 loader threads, the host
-    HorizontalFlip, CSVLogger, FinalizeLogger. Checks the reference's
+    HorizontalFlip, CSVLogger, FinalizeLogger, under ``trainer.deterministic``
+    (``FCOS_PHASE_OVERRIDES``). Checks the reference's
     valid/map50 floor, the step count, map50 after each epoch, and the last validation's map50 recounted
     in numpy (``witness_map50``) from the padded arrays MMDetectionMAP was
     given, to 1e-9. The JAX ResNet, FPN, FCOS head, losses, NMS and mAP
@@ -3346,6 +3678,7 @@ def run_fcos_recipe(toy_root):
     import tempfile
     import torch
     from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor.config import apply_override
     from torchok_tpu_torch.ops.common import LAUNCHES
 
     start = time.perf_counter()
@@ -3355,8 +3688,12 @@ def run_fcos_recipe(toy_root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
+        cfg = fcos_config(toy_root, tmp)
+        for override in FCOS_PHASE_OVERRIDES:
+            key, _, value = override.partition("=")
+            apply_override(cfg, key, value)
         try:
-            trainer, logs = run(fcos_config(toy_root, tmp), "train")
+            trainer, logs = run(cfg, "train")
         finally:
             restore()
         torch.cuda.synchronize()
@@ -3700,30 +4037,20 @@ def check_detr_determinism(toy_root, steps=DETR_DETERMINISM_STEPS):
              f"{apart[True][1]} tensors differ between two runs (largest {apart[True][2]:.3e})")
 
 
-def start_detr_recipe(toy_root, seeds=DETR_DRAWS, log_dir=None):
-    """Start :func:`run_detr_recipe` for each of ``seeds``, and
-    :func:`check_detr_determinism`, each in a process of its own and a
-    process group of its own (``chip_smoke.py --detr-recipe`` and
-    ``--detr-determinism``), side by side, their output to logs under
-    ``log_dir`` (default ``toy_root``): the 6,000 steps of a run are bound by
-    the host, so they run beside the rest of the script. The
-    processes get ``CUBLAS_WORKSPACE_CONFIG`` in their environment, as
-    ``trainer.deterministic`` needs it before their first cuBLAS call. All
-    are stopped with their loader workers when this script exits. Returns
-    ``[(name, process, log path)]``."""
-    import atexit
+def start_processes(jobs, log_dir):
+    """Start each of ``jobs`` (``(name, this script's arguments, environment
+    overrides)``) in a process of its own and a process group of its own,
+    side by side, its output to ``<log_dir>/<name>.log`` (spaces as
+    underscores). All are stopped with their loader workers when this script
+    exits. Returns ``[(name, process, log path)]``."""
     import signal
-    log_dir = log_dir or toy_root
-    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    jobs = [(f"seed {seed}", ["--detr-recipe", toy_root, "--seed", str(seed)]) for seed in seeds]
-    jobs.append(("determinism", ["--detr-determinism", toy_root]))
     runs = []
-    for name, args in jobs:
-        log_path = os.path.join(log_dir, f"detr_{name.replace(' ', '_')}.log")
+    for name, args, env in jobs:
+        log_path = os.path.join(log_dir, f"{name.replace(' ', '_')}.log")
         with open(log_path, "w") as log:
             proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
-                                    stdout=log, stderr=subprocess.STDOUT, env=env,
-                                    start_new_session=True)
+                                    stdout=log, stderr=subprocess.STDOUT,
+                                    env={**os.environ, **env}, start_new_session=True)
         runs.append((name, proc, log_path))
 
     def stop():
@@ -3735,24 +4062,47 @@ def start_detr_recipe(toy_root, seeds=DETR_DRAWS, log_dir=None):
     return runs
 
 
-def wait_detr_recipe(runs, limit_s=1100.0):
-    """Wait for the processes of :func:`start_detr_recipe` until ``limit_s``
+def wait_processes(runs, limit_s=1100.0):
+    """Wait for the processes of :func:`start_processes` until ``limit_s``
     seconds into the script and print their output. Returns the failures
-    and ``{seed: (map50 with the reference's decoding, with the recipe's)}``
-    from each run's ``detr draw`` line."""
-    failures, readings = [], {}
+    and ``{name: output}``."""
+    failures, texts = [], {}
     for name, proc, log_path in runs:
         try:
             rc = proc.wait(timeout=max(1.0, limit_s - (time.perf_counter() - _START)))
         except subprocess.TimeoutExpired:
             rc = None
         with open(log_path) as f:
-            text = f.read()
-        print(f"--- detr {name} ---\n{text}", end="", flush=True)
+            texts[name] = f.read()
+        print(f"--- {name} ---\n{texts[name]}", end="", flush=True)
         if rc is None:
             failures.append(f"{name}: its process had not ended {limit_s:.0f} s into the script")
         elif rc != 0:
             failures.append(f"{name}: its process exited with code {rc}")
+    return failures, texts
+
+
+def start_detr_recipe(toy_root, seeds=DETR_DRAWS, log_dir=None):
+    """:func:`run_detr_recipe` for each of ``seeds``, and
+    :func:`check_detr_determinism`, started by :func:`start_processes`
+    (``chip_smoke.py --detr-recipe`` and ``--detr-determinism``), their logs
+    under ``log_dir`` (default ``toy_root``): the 6,000 steps of a run are
+    bound by the host, so they run beside the rest of the script. Each sets
+    ``CUBLAS_WORKSPACE_CONFIG`` when it starts, as ``trainer.deterministic``
+    needs it before the first cuBLAS call."""
+    jobs = [(f"detr seed {seed}", ["--detr-recipe", toy_root, "--seed", str(seed)], {})
+            for seed in seeds]
+    jobs.append(("detr determinism", ["--detr-determinism", toy_root], {}))
+    return start_processes(jobs, log_dir or toy_root)
+
+
+def wait_detr_recipe(runs, limit_s=1100.0):
+    """:func:`wait_processes` for :func:`start_detr_recipe`'s processes.
+    Returns the failures and ``{seed: (map50 with the reference's decoding,
+    with the recipe's)}`` from each run's ``detr draw`` line."""
+    failures, texts = wait_processes(runs, limit_s)
+    readings = {}
+    for text in texts.values():
         for line in text.splitlines():
             if line.startswith("detr draw "):
                 draw = json.loads(line[len("detr draw "):])
@@ -4003,14 +4353,14 @@ FCOS_VIT_FROZEN = ("backbone.patch_embed.", "backbone.pos_embed", "backbone.cls_
 FCOS_VIT_MAY_STAY = ("backbone.norm.", "bbox_head.scales.")
 
 
-def decay_only(initial, steps, lr, weight_decay, momentum):
+def decay_only(initial, steps, lr, weight_decay, momentum, nesterov=False):
     """SGD's trajectory of a parameter whose gradient is zero (``torch.optim.
-    SGD``, no dampening, no Nesterov), in f64 on the host."""
+    SGD``, no dampening), in f64 on the host."""
     p, buf = initial.double(), None
     for _ in range(steps):
         d = weight_decay * p
         buf = d if buf is None else momentum * buf + d
-        p = p - lr * buf
+        p = p - lr * (d + momentum * buf if nesterov else buf)
     return p
 
 
@@ -4321,14 +4671,16 @@ def run_augment_recipe():
     Normalize and ToTensorV2), verbatim, with the recipe's model at full
     width (hrnet_w18 + HRNetSegmentationNeck + SegmentationHead of 3
     classes at 256x256, bs 8, f32, CE + Dice, Adam 1e-4), through ``run(...,
-    "train")`` on the ``SweetPepperShapes`` stand-in data in 4 loader
+    "train")`` on PNG images and gray PNG masks the script writes
+    (``write_sweet_pepper_tree``, read by ``SweetPepper``) in 4 loader
     worker processes: one epoch of ``SWEET_PEPPER_STEPS`` steps and one
-    validation (the cuts printed). The two OneOfs stay on the host (their
+    validation (the cuts printed), with the recipe's ModelCheckpointWithOnnx. The two OneOfs stay on the host (their
     warps need one input shape), so the loader workers run the warps in
     numpy. Checks: each new device path on the card against its CPU path
     (:func:`check_augment_devices`); a finite loss and JaccardIndex, the
     step count, every parameter moved; no cv2, jax or torchok_tpu in this
-    process or in a loader worker. Prints the host ms a sample of each
+    process or in a loader worker; an artifact beside each checkpoint,
+    replaying the VALID images (``check_artifacts``). Prints the host ms a sample of each
     transform, train img/s and peak memory beside the card's line. The JAX
     HRNet and transforms reach no Pallas kernel, so every hand-written
     counter stays at 0."""
@@ -4336,14 +4688,22 @@ def run_augment_recipe():
     import numpy as np
     import torch
     from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.callbacks.model_checkpoint import ModelCheckpoint
     from torchok_tpu_torch.engine.callbacks import Callback
     from torchok_tpu_torch.ops.common import LAUNCHES
 
     start = time.perf_counter()
+    parts = {}  # the phase's seconds by part
+
+    def lap(name):
+        parts[name] = time.perf_counter() - start - sum(parts.values())
+
     card = card_line()
-    stand_in = sweet_pepper_dataset()(None, num_samples=16, image_size=(256, 256))
-    check_augment_devices(stand_in.images[:8], stand_in.masks[:8], torch.device("cuda", 0))
-    host_ms = time_host_transforms(stand_in.images, stand_in.masks)
+    images, masks = sweet_pepper_arrays(16, True)
+    check_augment_devices(images[:8], masks[:8], torch.device("cuda", 0))
+    lap("device checks")
+    host_ms = time_host_transforms(images, masks)
+    lap("host ms a sample")
     print("augment recipe: host ms a sample (256x256 uint8, in this process): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items()) + f" on {card}", flush=True)
 
@@ -4356,15 +4716,18 @@ def run_augment_recipe():
                             for k, v in trainer.state.model.named_parameters()}
 
     recorder = Recorder()
-    with tempfile.TemporaryDirectory(prefix="sweet_pepper_") as tmp:
-        cfg, cuts = sweet_pepper_config(tmp)
-        print(f"augment recipe: configs/segmentation_sweet_pepper.yaml with the cuts {cuts}",
-              flush=True)
+    with tempfile.TemporaryDirectory(prefix="sweet_pepper_") as tmp, ExportTimes() as exports:
+        write_sweet_pepper_tree(tmp)
+        lap("PNGs written")
+        cfg, cuts = sweet_pepper_config(os.path.join(tmp, "logs"), tmp)
+        print(f"augment recipe: configs/segmentation_sweet_pepper.yaml with the cuts {cuts}; "
+              f"the PNGs written in {parts['PNGs written']:.2f} s", flush=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
         trainer, logs = run(cfg, "train", [recorder])
         torch.cuda.synchronize()
+        lap("run (the export in it)")
         require_launches("augment recipe train", launch_counts(), {})
         peak = torch.cuda.max_memory_allocated()
         stats = trainer.last_fit
@@ -4377,9 +4740,13 @@ def run_augment_recipe():
         finally:
             batches.close()
             loader.close()
+        moved = {name: not torch.equal(value, recorder.initial[name])
+                 for name, value in trainer.state.model.named_parameters()}
+        lap("a loader worker's modules")
+        saver = next(cb for cb in trainer.callbacks if isinstance(cb, ModelCheckpoint))
+        n_ckpts, worst = check_artifacts("augment recipe", trainer, saver)
+        lap("replays")
     in_main = modules_loaded()
-    moved = {name: not torch.equal(value, recorder.initial[name])
-             for name, value in trainer.state.model.named_parameters()}
     loss, jaccard = logs.get("train/loss", float("nan")), logs.get("valid/JaccardIndex",
                                                                      float("nan"))
     print(f"augment recipe (hrnet_w18 + HRNetSegmentationNeck + SegmentationHead, 3 classes, "
@@ -4390,8 +4757,11 @@ def run_augment_recipe():
           f"device memory {peak / 2**20:.1f} MiB; {sum(moved.values())} of {len(moved)} "
           f"parameters moved; a host batch {batch['image'].dtype} "
           f"{tuple(batch['image'].shape)}; modules loaded of cv2, jax, torchok_tpu: {in_main} "
-          f"here, {in_worker} in a loader worker; 0 hand-written launches; phase "
-          f"{time.perf_counter() - start:.1f} s on {card}", flush=True)
+          f"here, {in_worker} in a loader worker; {n_ckpts} checkpoints with their artifacts, "
+          f"ModelCheckpointWithOnnx's exports {', '.join(f'{t:.2f}' for t in exports.seconds)} "
+          f"s, largest replay difference {worst:.3e}; 0 hand-written launches; phase "
+          f"{time.perf_counter() - start:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") on {card}", flush=True)
     if not (math.isfinite(loss) and math.isfinite(jaccard)):
         fail(f"augment recipe: train/loss {loss} or valid/JaccardIndex {jaccard} not finite")
     if trainer.global_step != SWEET_PEPPER_STEPS or stats["steps"] != SWEET_PEPPER_STEPS:
@@ -4404,6 +4774,526 @@ def run_augment_recipe():
     if batch["image"].dtype != np.uint8 or tuple(batch["image"].shape) != (8, 256, 256, 3):
         fail(f"augment recipe: the host stage gave {batch['image'].dtype} "
              f"{tuple(batch['image'].shape)}, expected uint8 (8, 256, 256, 3)")
+
+
+def witness_hit(state, k=1):
+    """HitAtKMeter's value recomputed in numpy from the state its last
+    ``compute`` was given: the epoch's embeddings normalised by row in f64,
+    all inner products, each query's k nearest others (itself left out) in
+    descending order, and the queries with a neighbour of their class among
+    them counted."""
+    import numpy as np
+    unit, labels = _unit_rows(state)
+    similarity = unit @ unit.T
+    np.fill_diagonal(similarity, -np.inf)
+    neighbours = np.argsort(-similarity, axis=1, kind="stable")[:, :k]
+    return float(np.mean((labels[neighbours] == labels[:, None]).any(1)))
+
+
+def _unit_rows(state):
+    """A retrieval meter state's embeddings as f64 rows of norm 1, and
+    their labels."""
+    import numpy as np
+    import torch
+    vectors = torch.cat(state["vectors"]).double().cpu().numpy()
+    labels = np.concatenate([np.asarray(t.cpu()) if torch.is_tensor(t) else np.asarray(t)
+                             for t in state["group_labels"]])
+    return vectors / np.maximum(np.linalg.norm(vectors, axis=1, keepdims=True), 1e-12), labels
+
+
+# embeddings whose directions all lie within this of one another (1 - the
+# least cosine of two) are one direction to f32 search, whose inner products
+# round at a few times 6e-8: their HitAtKMeter reading is rounding, which no
+# recount in other arithmetic reproduces
+HIT_RESOLVABLE = 1e-4
+
+
+def check_hit(label, state, params, device):
+    """HitAtKMeter held to :func:`witness_hit` to 1e-9, twice: on the
+    epoch's embeddings as the run gave them, where their directions spread
+    by ``HIT_RESOLVABLE`` or more (else the reading is printed, not held),
+    and on the same embeddings less their mean (in f64, then f32), through
+    a new meter of the recipe's ``params`` on ``device``: directions f32
+    resolves, with the classes the run's embeddings carry. Returns the
+    spread, the centred value and its recount."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.constructor import METRICS
+    unit, labels = _unit_rows(state)
+    spread = float(1.0 - (unit @ unit.T).min())
+    vectors = torch.cat(state["vectors"]).double().cpu()
+    centred = (vectors - vectors.mean(0)).float()
+    meter = METRICS.get("HitAtKMeter")(**params)
+    fresh = meter.empty_state(device)
+    for lo in range(0, len(centred), 64):
+        fresh = meter.update(fresh, vectors=centred[lo:lo + 64].to(device),
+                             group_labels=labels[lo:lo + 64])
+    value, recount = meter.compute(fresh), witness_hit(fresh)
+    if not abs(value - recount) <= 1e-9:
+        fail(f"{label}: HitAtKMeter on the centred embeddings {value} differs from its "
+             f"recount {recount}")
+    return spread, value, recount
+
+
+def witness_accuracy(batches):
+    """Accuracy (multiclass, micro) recounted in numpy from the (preds,
+    target) host batches it was given, its f32 division as the meter's."""
+    import numpy as np
+    correct = sum(int((np.argmax(p, 1) == t).sum()) for p, t in batches)
+    total = sum(len(t) for _, t in batches)
+    return float(np.float32(correct) / np.float32(total))
+
+
+def check_accuracy_planted(label, batches, device):
+    """The Accuracy meter (the recipe's, no parameters) over ``batches``,
+    the (logits, target) host batches the run gave it, with the targets of a
+    seeded half of the rows set to their logits' argmax: a value the run's
+    few steps over 11318 classes do not reach (its own reading is 0). The
+    meter on the card against :func:`witness_accuracy` to 1e-9. Returns
+    both."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.constructor import METRICS
+    rng = np.random.default_rng(0)
+    planted = []
+    for logits, target in batches:
+        target = target.copy()
+        rows = rng.random(len(target)) < 0.5
+        target[rows] = np.argmax(logits[rows], 1)
+        planted.append((logits, target))
+    meter = METRICS.get("Accuracy")()
+    state = meter.empty_state(device)
+    for logits, target in planted:
+        state = meter.update(state, preds=torch.from_numpy(logits).to(device),
+                             target=torch.from_numpy(target).to(device))
+    value, recount = meter.compute(state), witness_accuracy(planted)
+    if not (recount > 0 and abs(value - recount) <= 1e-9):
+        fail(f"{label}: Accuracy on planted targets {value} differs from its recount {recount}")
+    return value, recount
+
+
+class ExportTimes:
+    """Times every ``export_task_model`` call (the callbacks' and the
+    script's) while installed."""
+
+    def __init__(self):
+        from torchok_tpu_torch.export import stablehlo
+        self.module, self.export, self.seconds = stablehlo, stablehlo.export_task_model, []
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return self.export(*args, **kwargs)
+            finally:
+                self.seconds.append(time.perf_counter() - start)
+        self.module.export_task_model = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.export_task_model = self.export
+
+
+def eval_images(trainer):
+    """The VALID set as the eval forward sees it: host and device transforms
+    of the trainer, on the card, in order."""
+    import torch
+    loader = trainer.task.val_dataloader()[0]
+    trainer._install_device_fns([loader], train=False)
+    loader.worker_processes = False  # one pass: threads start at once
+    try:
+        return torch.cat([batch["image"] for batch in loader])
+    finally:
+        loader.close()
+
+
+def live_forward(task, images, batch=64):
+    """The task model's inference forward (``forward_image``, eval mode,
+    the task's autocast) over ``images`` in batches of ``batch``."""
+    import torch
+    module = task.as_module()
+    training = module.training
+    module.eval()
+    try:
+        with torch.inference_mode(), torch.autocast(images.device.type, dtype=task.compute_dtype,
+                                                    enabled=task.compute_dtype is not None):
+            return torch.cat([module.forward_image(images[i:i + batch]).float()
+                              for i in range(0, len(images), batch)])
+    finally:
+        module.train(training)
+
+
+def replay_artifact(path, images, live):
+    """The artifact under ``path`` loaded and run on ``images`` in batches of
+    64 and on the first ``REPLAY_SINGLES`` one at a time: each one's largest
+    difference from ``live`` over the largest magnitude of ``live``."""
+    import torch
+    from torchok_tpu_torch.export.stablehlo import StableHLOModel
+    runner = StableHLOModel(path)
+    scale = live.abs().max().item()
+    worst = {}
+    for batch, n in ((1, REPLAY_SINGLES), (64, len(images))):
+        out = torch.cat([runner(images[i:i + batch]).float() for i in range(0, n, batch)])
+        if out.shape != live[:n].shape:
+            fail(f"replay of {path}: output {tuple(out.shape)}, live {tuple(live[:n].shape)}")
+        worst[batch] = (out - live[:n]).abs().max().item() / scale
+    return worst
+
+
+def check_artifacts(label, trainer, saver, export_missing=False):
+    """Every checkpoint ``saver`` left has its artifact beside it (with
+    ``export_missing``, for a recipe whose plain ModelCheckpoint exports
+    nothing, the script writes it first with ``export_task_model``). Each
+    artifact, loaded on the card, replays the VALID images at batch 64 (the
+    first ``REPLAY_SINGLES`` also at batch 1) within ``REPLAY_TOLERANCE`` of the largest magnitude of the task's
+    own eval forward with that checkpoint's weights. Returns the largest
+    difference seen."""
+    import glob
+    import torch
+    from torchok_tpu_torch.export import stablehlo
+    model = trainer.state.model
+    ckpts = sorted(glob.glob(os.path.join(saver.dirpath, "*.ckpt")))
+    if not ckpts:
+        fail(f"{label}: no checkpoint in {saver.dirpath}")
+    images = eval_images(trainer)
+    worst = 0.0
+    for ckpt in ckpts:
+        artifact = os.path.splitext(ckpt)[0] + ".stablehlo"
+        saved = torch.load(ckpt, map_location=images.device, weights_only=True)
+        model.load_state_dict(saved["state_dict"])
+        if export_missing:
+            stablehlo.export_task_model(trainer.task, artifact)
+        if not (os.path.isfile(os.path.join(artifact, "model.pt2"))
+                and os.path.isfile(os.path.join(artifact, "meta.json"))):
+            fail(f"{label}: no artifact beside {os.path.basename(ckpt)} "
+                 f"({sorted(os.listdir(saver.dirpath))})")
+        errs = replay_artifact(artifact, images, live_forward(trainer.task, images))
+        print(f"{label}: {os.path.basename(artifact)} replays {len(images)} VALID images at "
+              f"batch 64 within {errs[64]:.3e} and the first {REPLAY_SINGLES} at batch 1 within "
+              f"{errs[1]:.3e} of the live eval forward's largest magnitude (tol "
+              f"{REPLAY_TOLERANCE:g})", flush=True)
+        if not max(errs.values()) <= REPLAY_TOLERANCE:
+            fail(f"{label}: {artifact} replays {errs} away from the live eval forward")
+        worst = max(worst, *errs.values())
+    stray = sorted(p for p in os.listdir(saver.dirpath) if p.endswith(".stablehlo")
+                   and os.path.splitext(p)[0] + ".ckpt" not in map(os.path.basename, ckpts))
+    if stray:
+        fail(f"{label}: artifacts without their checkpoint: {stray}")
+    return len(ckpts), worst
+
+
+def check_frozen_backbone(label, trainer, initial, steps):
+    """arcface_sop's epoch-0 policy: the whole backbone frozen. Every frozen
+    parameter follows its decay-only SGD trajectory (Nesterov, recomputed
+    here; one with no decay stays bit-equal), every BatchNorm statistic of
+    the backbone stays bit-equal, every parameter outside it moved."""
+    import torch
+    state = trainer.state
+    model = state.model
+    params = dict(model.named_parameters())
+    want = {n for n in params if n.startswith("backbone.")}
+    if state.frozen_params != want:
+        fail(f"{label}: frozen {sorted(state.frozen_params ^ want)[:6]}... differ from the "
+             "backbone")
+    group_of = {id(p): g for g in trainer.bundles[0].optimizer.param_groups for p in g["params"]}
+    worst, decayed, still = 0.0, 0, 0
+    for name, p in params.items():
+        value, first = p.detach(), initial[name]
+        if name not in want:
+            if torch.equal(value, first):
+                fail(f"{label}: {name} outside the frozen backbone did not move")
+            continue
+        group = group_of[id(p)]
+        if not group["weight_decay"]:
+            still += 1
+            if not torch.equal(value, first):
+                fail(f"{label}: frozen {name} with no decay moved")
+            continue
+        decayed += 1
+        traj = decay_only(first.cpu(), steps, group["lr"], group["weight_decay"],
+                          group["momentum"], group["nesterov"])
+        err = ((value.cpu().double() - traj).abs() / (traj.abs() + 1e-30)).max().item()
+        worst = max(worst, err)
+        if not err <= 16 * 2.0 ** -24:
+            fail(f"{label}: frozen {name} left its decay-only trajectory ({err:.3e} relative)")
+    stats = [k for k in model.state_dict() if k.startswith("backbone.")
+             and k.endswith(("running_mean", "running_var"))]
+    moved = [k for k in stats if not torch.equal(model.state_dict()[k], initial[k])]
+    if not stats or moved:
+        fail(f"{label}: backbone BatchNorm statistics that moved: {moved[:6]} (of {len(stats)})")
+    print(f"{label} freeze check: {len(want)} backbone tensors frozen, {decayed} on their "
+          f"decay-only Nesterov SGD trajectory within {worst:.3e} relative (tol 16 x 2^-24), "
+          f"{still} without decay bit-equal, {len(stats)} BatchNorm statistics bit-equal, "
+          f"{len(params) - len(want)} tensors outside the backbone moved", flush=True)
+
+
+def run_sop_recipe(recipe, data_folder):
+    """SOP recipe ``recipe`` (``sop_config``: its pipeline, model and
+    callbacks at full width, one epoch of ``SOP_LIMIT_TRAIN[recipe]`` steps
+    and a validation over the written test split) through ``run(...,
+    "train")``. Checks: finite losses; every parameter that trains moved
+    (pairwise and triplet: all, with BatchNorm statistics unchanged, as the
+    JAX wrapper tasks' inference forward leaves them; arcface:
+    :func:`check_frozen_backbone`); HitAtKMeter (:func:`check_hit`) and
+    arcface's train Accuracy (also on planted targets:
+    :func:`check_accuracy_planted`) equal to numpy recounts to 1e-9; an
+    artifact beside every
+    checkpoint, each replaying the VALID images (:func:`check_artifacts`).
+    resnet18 and semnasnet_100 reach no hand-written kernel, as the JAX ones
+    reach no Pallas kernel."""
+    import tempfile
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.callbacks.model_checkpoint import ModelCheckpoint
+    from torchok_tpu_torch.constructor import METRICS
+    from torchok_tpu_torch.engine.callbacks import Callback
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    class Recorder(Callback):
+        def on_fit_start(self, trainer, task):
+            self.initial = {k: v.detach().clone()
+                            for k, v in trainer.state.model.state_dict().items()}
+
+    start = time.perf_counter()
+    arcface = recipe == "representation_arcface_sop"
+    meter = METRICS.get("HitAtKMeter")
+    compute, kept = meter.compute, {}
+
+    def keep_state(self, state):
+        kept["state"] = state
+        return compute(self, state)
+
+    recorder = Recorder()
+    with tempfile.TemporaryDirectory(prefix=f"{recipe}_") as tmp, ExportTimes() as exports:
+        cfg, cuts = sop_config(recipe, data_folder, tmp)
+        print(f"{recipe}: configs/{recipe}.yaml with the cuts {cuts}", flush=True)
+        accuracy, restore = capture_metric_inputs("Accuracy")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        meter.compute = keep_state
+        try:
+            trainer, logs = run(cfg, "train", [recorder])
+        finally:
+            del meter.compute
+            restore()
+        torch.cuda.synchronize()
+        require_launches(f"{recipe} train", launch_counts(), {})
+        peak = torch.cuda.max_memory_allocated()
+        stats, evals = trainer.last_fit, trainer.last_eval
+        in_fit = len(exports.seconds)
+        loss, hit = logs.get("train/loss", float("nan")), logs.get("valid/HitAtKMeter",
+                                                                   float("nan"))
+        if not (math.isfinite(loss) and math.isfinite(hit)):
+            fail(f"{recipe}: train/loss {loss} or valid/HitAtKMeter {hit} not finite")
+        if stats["steps"] != SOP_LIMIT_TRAIN[recipe]:
+            fail(f"{recipe}: {stats['steps']} train steps, expected {SOP_LIMIT_TRAIN[recipe]}")
+        model = trainer.state.model
+        if arcface:
+            check_frozen_backbone(recipe, trainer, recorder.initial, stats["steps"])
+        else:
+            state = model.state_dict()
+            params = {n for n, _ in model.named_parameters()}
+            still = [n for n in params if torch.equal(state[n], recorder.initial[n])]
+            moved = [n for n in state if n not in params and n.endswith("running_mean")
+                     and not torch.equal(state[n], recorder.initial[n])]
+            if still or moved:
+                fail(f"{recipe}: parameters that did not move {still[:5]}, BatchNorm "
+                     f"statistics that moved {moved[:5]}")
+        witness = witness_hit(kept["state"])
+        params = next(m["params"] for m in cfg["metrics"] if m["name"] == "HitAtKMeter")
+        spread, centred, recount = check_hit(recipe, kept["state"], params,
+                                             torch.device("cuda", 0))
+        line = (f"{recipe}: valid/HitAtKMeter {hit:.12f}, its numpy recount {witness:.12f} "
+                f"(the embeddings' directions spread by {spread:.3e}: "
+                + ("held to 1e-9" if spread >= HIT_RESOLVABLE else
+                   f"below {HIT_RESOLVABLE:g}, one direction to f32, not held")
+                + f"); on them centred {centred:.12f}, its numpy recount {recount:.12f} "
+                  "(tol 1e-9)")
+        if spread >= HIT_RESOLVABLE and not abs(witness - hit) <= 1e-9:
+            fail(f"{recipe}: valid/HitAtKMeter {hit} differs from its recount {witness}")
+        if arcface:
+            batches = accuracy.get("last", [])
+            acc, recount = logs.get("train/Accuracy", float("nan")), witness_accuracy(batches)
+            line += f"; train/Accuracy {acc:.12f}, its numpy recount {recount:.12f} (tol 1e-9)"
+            if not abs(acc - recount) <= 1e-9:
+                fail(f"{recipe}: train/Accuracy {acc} differs from its recount {recount}")
+            planted, recount = check_accuracy_planted(recipe, batches, torch.device("cuda", 0))
+            line += (f"; Accuracy on the run's {sum(len(t) for _, t in batches)} train logits "
+                     f"with half the targets planted at their argmax {planted:.12f}, its numpy "
+                     f"recount {recount:.12f} (tol 1e-9)")
+        print(line, flush=True)
+        saver = next(cb for cb in trainer.callbacks if isinstance(cb, ModelCheckpoint))
+        n_ckpts, worst = check_artifacts(recipe, trainer, saver, export_missing=not arcface)
+    print(f"{recipe} ({cfg['task']['params']['backbone_name']}, "
+          f"{cfg['task']['params']['inputs'][0]['shape']}, bs "
+          f"{cfg['data']['TRAIN'][0]['dataloader']['batch_size']}, f32): train/loss={loss:.6f} "
+          f"after {stats['steps']} steps; train {stats['images']} images in "
+          f"{stats['seconds']:.3f} s = {stats['images'] / stats['seconds']:.2f} img/s, eval "
+          f"{evals['images']} images in {evals['seconds']:.3f} s = "
+          f"{evals['images'] / evals['seconds']:.2f} img/s (smoke readings: host clock, "
+          f"first fetch to the read-back, the recipe's loader worker processes running the "
+          f"host pipeline); peak device memory {peak / 2**20:.1f} MiB; {n_ckpts} checkpoints, "
+          f"{len(exports.seconds)} exports ({in_fit} in the fit) of "
+          f"{', '.join(f'{t:.2f}' for t in exports.seconds)} s; largest replay difference "
+          f"{worst:.3e}; 0 hand-written launches; phase {time.perf_counter() - start:.1f} s on "
+          f"{card_line()}", flush=True)
+
+
+def run_sop_recipes():
+    """The three SOP recipes at full width (:func:`run_sop_recipe`) on a SOP
+    tree the script writes (:func:`write_sop_tree`)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="sop_")
+    try:
+        start = time.perf_counter()
+        written = write_sop_tree(root)
+        print(f"SOP tree: {written} PNGs of 200 to 400 px a side ({SOP_CLASSES[0]} train and "
+              f"{SOP_CLASSES[1]} test classes of {SOP_PER_CLASS}, {SOP_TRIPLETS} triplets) "
+              f"written in {time.perf_counter() - start:.2f} s", flush=True)
+        for recipe in SOP_RECIPES:
+            stamp(f"{recipe} at full width")
+            run_sop_recipe(recipe, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+CIFAR_LABELS = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse", "ship",
+                "truck"]
+
+
+def write_cifar_batches(root, images, labels):
+    """``<root>/cifar-10-batches-py`` as CIFAR-10's python batches lay it out:
+    ``test_batch`` holds ``images`` (N, 32, 32, 3) uint8 and ``labels``,
+    ``batches.meta`` the ten names, and the five train batches the first ten
+    images each."""
+    import pickle
+    import numpy as np
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    flat = np.ascontiguousarray(images.transpose(0, 3, 1, 2)).reshape(len(images), -1)
+    batches = {"test_batch": (flat, labels)}
+    batches.update({f"data_batch_{i}": (flat[:10], labels[:10]) for i in range(1, 6)})
+    for name, (data, targets) in batches.items():
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({"data": data, "labels": [int(t) for t in targets]}, f)
+    with open(os.path.join(base, "batches.meta"), "wb") as f:
+        pickle.dump({"label_names": CIFAR_LABELS}, f)
+
+
+def run_stablehlo_infer(shapes_state):
+    """``configs/stablehlo_infer.yaml`` through ``ONNXTask`` on the card: the
+    classification north star's trained resnet18 (``shapes_state``, its
+    best checkpoint) is tested live with the recipe's TEST data and metrics
+    on the shapes VALID images written as a CIFAR-10 test batch, exported
+    with ``export_task_model``, and the recipe replays the artifact with
+    ``+mode=test``. Its Accuracy and F1Score must equal the live test's to
+    1e-9. 0 hand-written launches."""
+    import tempfile
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor import DATASETS
+    from torchok_tpu_torch.data.datasets.examples.cifar import CIFAR10
+    from torchok_tpu_torch.export.stablehlo import export_task_model
+    from torchok_tpu_torch.ops.common import LAUNCHES
+
+    start = time.perf_counter()
+    valid = SHAPES_RECIPE["data"]["VALID"][0]["dataset"]["params"]
+    shapes = DATASETS.get("SyntheticShapesDataset")(None, **valid)
+    integrity = (CIFAR10.train_list, CIFAR10.test_list, CIFAR10.meta)
+    with tempfile.TemporaryDirectory(prefix="stablehlo_infer_") as tmp:
+        folder = os.path.join(tmp, "cifar10")
+        write_cifar_batches(folder, shapes.images, shapes.targets)
+        ckpt = os.path.join(tmp, "shapes.ckpt")
+        torch.save({"state_dict": shapes_state}, ckpt)
+        cfg, cuts = stablehlo_infer_config(os.path.join(tmp, "shapes.stablehlo"), folder,
+                                           os.path.join(tmp, "infer"))
+        print(f"stablehlo_infer: configs/stablehlo_infer.yaml with the cuts {cuts}", flush=True)
+        live_cfg = shapes_config(os.path.join(tmp, "live"))
+        live_cfg.update(data={"TEST": copy.deepcopy(cfg["data"]["TEST"])},
+                        metrics=copy.deepcopy(cfg["metrics"]), resume_path=ckpt)
+        CIFAR10.train_list = [[name, None] for name, _ in integrity[0]]
+        CIFAR10.test_list = [[name, None] for name, _ in integrity[1]]
+        CIFAR10.meta = {**integrity[2], "md5": None}
+        try:
+            LAUNCHES.clear()
+            trainer, live = run(live_cfg, "test")
+            export_start = time.perf_counter()
+            export_task_model(trainer.task, cfg["task"]["params"]["path_to_onnx"])
+            exported = time.perf_counter() - export_start
+            _, replayed = run(cfg, "test")
+            torch.cuda.synchronize()
+            require_launches("stablehlo_infer", launch_counts(), {})
+        finally:
+            CIFAR10.train_list, CIFAR10.test_list, CIFAR10.meta = integrity
+    print(f"stablehlo_infer (the shapes north star's resnet18 at 32x32, bf16 autocast, "
+          f"{len(shapes.images)} images as a CIFAR-10 test batch): ONNXTask test {replayed}, "
+          f"the live task's test {live}; export {exported:.2f} s; phase "
+          f"{time.perf_counter() - start:.1f} s on {card_line()}", flush=True)
+    for key in ("test/Accuracy", "test/F1Score"):
+        a, b = replayed.get(key, float("nan")), live.get(key, float("nan"))
+        if not (math.isfinite(a) and abs(a - b) <= 1e-9):
+            fail(f"stablehlo_infer: {key} {a} through ONNXTask, {b} from the live task")
+
+
+def check_kernel_export_refused():
+    """``export_task_model`` on the swinv2_tiny slice's task (its eval
+    forward launches K1) must raise ``NotImplementedError`` naming K1 and
+    write no program."""
+    import tempfile
+    from torchok_tpu_torch.constructor import TASKS
+    from torchok_tpu_torch.constructor.config import config_from_dict
+    from torchok_tpu_torch.constructor.config_structure import merge_structured
+    from torchok_tpu_torch.export.stablehlo import export_task_model
+
+    config = merge_structured(config_from_dict(copy.deepcopy(SLICE_CONFIG)))
+    task = TASKS.get(config.task.name)(config, **config.task.params.to_dict())
+    task.model.cuda()
+    with tempfile.TemporaryDirectory(prefix="swin_export_") as tmp:
+        path = os.path.join(tmp, "swin.stablehlo")
+        try:
+            export_task_model(task, path)
+        except NotImplementedError as e:
+            message = str(e)
+        else:
+            fail("export of swinv2_tiny (K1 in its eval forward) did not raise")
+        if "K1" not in message or os.path.exists(os.path.join(path, "model.pt2")):
+            fail(f"export of swinv2_tiny raised without naming K1 or left a program: {message}")
+    print(f"export refused for swinv2_tiny_window8_256: NotImplementedError({message!r})",
+          flush=True)
+
+
+# ``chip_smoke.py --side-phases``: the phases the full run starts in a
+# process of their own once the kernel timings are done. They read and
+# augment files and export models, so they use the host's cores and little
+# of the card, and they end before the main process's later phases do
+SIDE_PHASES = (("sweet_pepper", run_augment_recipe), ("sop", run_sop_recipes))
+
+
+def start_side_phases(log_dir):
+    """``chip_smoke.py --side-phases`` started by :func:`start_processes`,
+    on two intra-op threads for its CPU work (export tracing, the CPU parts
+    of its steps): the host's 8 cores also serve the DETR draws and this
+    process."""
+    return start_processes([("side phases", ["--side-phases"], {"OMP_NUM_THREADS": "2"})],
+                           log_dir)
+
+
+def side_phases_main() -> None:
+    """``chip_smoke.py --side-phases``: ``SIDE_PHASES`` in order, on one
+    card, with this script's checks; the first failed check exits 1."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: these phases need an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"{card_line()}; torch {torch.__version__}", flush=True)
+    for name, phase in SIDE_PHASES:
+        stamp(name)
+        phase()
+    stamp("side phases done")
 
 
 def main() -> None:
@@ -4494,6 +5384,8 @@ def main() -> None:
     run_op_paths(records)
     run_mbconv_path(mbconv_probe, b0, records)
     del b0
+    stamp("side phases started in a process of their own")
+    side_phases = start_side_phases(toy_root)
 
     stamp("swinv2 slices")
     swin_fwd, swin_bwd = {swin.KERNEL: 12}, {swin.KERNEL_BWD: 12}
@@ -4571,7 +5463,10 @@ def main() -> None:
     run_vit_beit_slices(records)
 
     stamp("north stars")
-    run_shapes_recipe()
+    shapes_state = run_shapes_recipe()
+    stamp("stablehlo_infer: the shapes model exported and replayed through ONNXTask")
+    run_stablehlo_infer(shapes_state)
+    check_kernel_export_refused()
     run_resume_phase(records)
     check_knn_index()
     run_arcface_recipe()
@@ -4582,8 +5477,10 @@ def main() -> None:
     run_fcos_vit_full_width()
     stamp("detr_gcvit at full width")
     run_detr_full_width(records)
-    stamp("augment recipe: segmentation_sweet_pepper's TRAIN pipeline")
-    run_augment_recipe()
+    stamp("side phases, joined")
+    failures, _ = wait_processes(side_phases)
+    if failures:
+        fail("side phases: " + "; ".join(failures))
     stamp("detr recipe, joined")
     finish_detr_recipe(detr_recipe)
 
@@ -4620,7 +5517,12 @@ def detr_recipe_main(argv) -> None:
 
 
 if __name__ == "__main__":
+    # the FCOS north star and the DETR draws run under trainer.deterministic,
+    # and cuBLAS reads its workspace setting at the process's first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if sys.argv[1:2] in (["--detr-recipe"], ["--detr-determinism"]):
         detr_recipe_main(sys.argv[1:])
+    elif sys.argv[1:] == ["--side-phases"]:
+        side_phases_main()
     else:
         main()

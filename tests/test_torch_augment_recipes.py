@@ -78,19 +78,21 @@ def test_sweet_pepper_host_pipeline_matches_jax():
 def test_chip_smoke_holds_the_sweet_pepper_recipe():
     assert load_yaml(REPO / "configs" / "segmentation_sweet_pepper.yaml") == \
         chip_smoke.SWEET_PEPPER_RECIPE
-    cfg, cuts = chip_smoke.sweet_pepper_config("/logs")
+    cfg, cuts = chip_smoke.sweet_pepper_config("/logs", "/data")
     train = cfg["data"]["TRAIN"][0]
     assert train["dataset"]["augment"] == chip_smoke.SWEET_PEPPER_RECIPE["data"]["TRAIN"][0][
         "dataset"]["augment"]
     assert train["dataloader"] == {"batch_size": 8, "num_workers": 4, "drop_last": True,
                                    "shuffle": True}
-    assert train["dataset"]["name"] == "SweetPepperShapes" and len(cuts) == 5
-    assert "ModelCheckpointWithOnnx" not in [c["name"] for c in cfg["callbacks"]]
+    assert train["dataset"]["name"] == "SweetPepper" and len(cuts) == 4
+    assert train["dataset"]["params"]["data_folder"] == "/data"
+    # the recipe's callbacks verbatim, ModelCheckpointWithOnnx included
+    assert cfg["callbacks"] == chip_smoke.SWEET_PEPPER_RECIPE["callbacks"]
     assert cfg["task"] == {**chip_smoke.SWEET_PEPPER_RECIPE["task"], "params": {
         **chip_smoke.SWEET_PEPPER_RECIPE["task"]["params"],
         "backbone_params": {"pretrained": False, "in_channels": 3}}}
-    dataset = chip_smoke.sweet_pepper_dataset()(None, num_samples=64, image_size=(16, 16))
+    images, masks = chip_smoke.sweet_pepper_arrays(64, True, size=16)
     base = SyntheticShapesSegmentationDataset(None, num_samples=64, image_size=(16, 16))
-    np.testing.assert_array_equal(dataset.images, base.images)
-    assert set(np.unique(dataset.masks)) == {0, 1, 2}
-    np.testing.assert_array_equal(dataset.masks == 0, base.masks == 0)
+    np.testing.assert_array_equal(images, base.images)
+    assert set(np.unique(masks)) == {0, 1, 2} and masks.dtype == np.uint8
+    np.testing.assert_array_equal(masks == 0, base.masks == 0)

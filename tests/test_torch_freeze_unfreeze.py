@@ -471,8 +471,6 @@ def test_freeze_policies_of_the_other_recipes_resolve(recipe, monkeypatch):
         bn_params = {f"{n}.{p}" for n in norms for p in ("weight", "bias")}
         assert bn_params <= params
     assert len(callback.masks(_Stub(model=model), 0)[0]) > len(params)  # the epoch policy
-    # what these recipes still lack is on the roadmap
-    roadmap = (REPO / "ROADMAP.md").read_text()
+    # every name of both recipes resolves now (SOP, ModelCheckpointWithOnnx)
     missing = sorted({n for r, n in names if not resolves(r, n)})
-    assert all(n in roadmap for n in missing), missing
-    assert bool(missing) == (recipe == "representation_arcface_sop")
+    assert not missing

@@ -16,6 +16,10 @@ A checkpoint is one ``torch.save`` file holding
   transforms, draw from;
 * ``epoch``, ``global_step``, ``monitor`` and ``metrics`` (the epoch's logs).
 
+After each save :meth:`ModelCheckpoint.on_checkpoint_saved` is called (an
+export callback writes its artifact there); a checkpoint dropped from the
+best k takes the artifact beside it along.
+
 ``Trainer.fit(task, ckpt_path)`` resumes from such a file with
 :func:`restore_train_state`; test and predict read its ``state_dict``.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import logging
 import os
+import shutil
 import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -182,6 +187,10 @@ class ModelCheckpoint(Callback):
             "monitor": self.monitor,
             "metrics": {k: float(v) for k, v in trainer.callback_metrics.items()},
         }, background=self.save_async)
+        self.on_checkpoint_saved(trainer, task, path)
+
+    def on_checkpoint_saved(self, trainer, task, path: str) -> None:
+        """Called after every save (CheckpointStableHLO exports there)."""
 
     def on_fit_end(self, trainer, task) -> None:
         wait_for_pending_saves()
@@ -206,6 +215,9 @@ class ModelCheckpoint(Callback):
                     self._save(trainer, task, path)
                     if worst_path != path:
                         Path(worst_path).unlink(missing_ok=True)
+                        # and the artifact an export callback wrote beside it
+                        shutil.rmtree(Path(worst_path).with_suffix(".stablehlo"),
+                                      ignore_errors=True)
                     self.best_k[worst_idx] = (score, path)
             best_idx = int(np.argmax([s for s, _ in self.best_k])) \
                 if self.mode == "max" else int(np.argmin([s for s, _ in self.best_k]))

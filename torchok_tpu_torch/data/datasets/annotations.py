@@ -1,6 +1,7 @@
-"""Annotation tables for the file-backed datasets: ``.csv`` through the
-standard library's ``csv`` module, ``.pkl`` through pandas, which is imported
-only here (the card machine has none)."""
+"""Annotation tables for the file-backed datasets: ``.csv`` and ``.txt``
+through the standard library's ``csv`` module (SOP's ``.txt`` files are
+space-separated: ``delimiter=" "``), ``.pkl`` through pandas, which is
+imported only here (the card machine has none)."""
 from __future__ import annotations
 
 import csv
@@ -8,12 +9,12 @@ from pathlib import Path
 from typing import Dict, List
 
 
-def read_table(path: Path) -> Dict[str, List]:
-    """Column name -> list of values (strings for a ``.csv``, the stored
-    objects for a pickled DataFrame)."""
-    if str(path).endswith(".csv"):
+def read_table(path: Path, delimiter: str = ",") -> Dict[str, List]:
+    """Column name -> list of values (strings for a ``.csv`` or ``.txt``
+    table with a header row, the stored objects for a pickled DataFrame)."""
+    if str(path).endswith((".csv", ".txt")):
         with open(path, newline="") as f:
-            rows = list(csv.DictReader(f))
+            rows = list(csv.DictReader(f, delimiter=delimiter))
         columns = list(rows[0]) if rows else []
         return {c: [r[c] for r in rows] for c in columns}
     try:

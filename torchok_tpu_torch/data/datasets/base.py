@@ -12,7 +12,11 @@ base.py:89``) seeds the host prefix: each sample's pass draws from one
 generator made from ``SeedSequence([seed, index])``, so a sample's draws
 depend on the loader's seed, the epoch and its index, and not on which
 loader thread runs it or when. ``torchok_tpu`` mixes the thread id into
-its per-thread streams instead, which no two runs share.
+its per-thread streams instead, which no two runs share. A sample that runs
+the prefix more than once (the views of a contrastive pair, the three
+images of a triplet) gives view ``v`` the stream ``SeedSequence([seed,
+index, v])``, so its views draw apart; a one-view sample keeps ``[seed,
+index]``.
 
 File-backed datasets read images through :meth:`ImageDataset._read_image`:
 PNG and JPEG by :mod:`torchok_tpu_torch.native` (no OpenCV or Pillow), then
@@ -109,13 +113,15 @@ class ImageDataset(ABC):
         """Seed the host transforms' draws from now on (per epoch)."""
         self._host_seed = int(seed) & 0x7FFFFFFFFFFFFFFF
 
-    def apply_host_pipeline(self, sample: dict, index: int) -> dict:
+    def apply_host_pipeline(self, sample: dict, index: int, view: Optional[int] = None) -> dict:
         """Run the host prefix on one sample; ``index`` (the sample's index
-        in the dataset) picks its generator once the dataset is seeded."""
+        in the dataset) and, for one of several views of it, ``view`` pick
+        its generator once the dataset is seeded."""
         if self._host_seed is None:
             sample = self._host_pipeline(**sample)
         else:
-            rng = np.random.default_rng(np.random.SeedSequence([self._host_seed, int(index)]))
+            entropy = [self._host_seed, int(index)] + ([] if view is None else [int(view)])
+            rng = np.random.default_rng(np.random.SeedSequence(entropy))
             with sample_generator(rng):
                 sample = self._host_pipeline(**sample)
         # with a device suffix the image stays uint8 on the host (4x cheaper

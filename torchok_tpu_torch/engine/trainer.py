@@ -23,7 +23,9 @@ reference: torchok/constructor/runner.py + Lightning internals).
   checkpoint carries them.
 * Input pipeline: loader threads fetch and collate numpy batches; the batch
   is copied to the device and the dataset's device transform suffix runs
-  there, batched.
+  there, batched: once on ``image``, or once per image key of a multi-view
+  batch (``image_0``/``image_1``, ``anchor``/``positive``/``negative``), in
+  the keys' sorted order, each with draws of its own.
 * ``precision: 16`` (or ``bf16``) runs the forward and the loss under
   ``torch.autocast(device, torch.bfloat16)``; parameters, gradients and
   optimizer state stay f32, and bf16 needs no loss scaling. Every eval step
@@ -135,6 +137,14 @@ def _map_tensors(fn: Callable[[torch.Tensor], Any], value: Any) -> Any:
     if isinstance(value, dict):
         return {k: _map_tensors(fn, v) for k, v in value.items()}
     return value
+
+
+def image_keys(batch: Dict[str, Any]) -> List[str]:
+    """The keys of a batch that carry images, in its order: ``image``, the
+    views ``image_*`` of a contrastive pair, or a triplet's ``anchor``,
+    ``positive`` and ``negative``."""
+    return [k for k in batch if k == "image" or k.startswith("image_")
+            or k in ("anchor", "positive", "negative")]
 
 
 def _close(loaders: Sequence) -> None:
@@ -276,10 +286,16 @@ class Trainer:
         def device_fn(host_batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             batch = {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()
                      if isinstance(v, np.ndarray)}
+            keys = image_keys(batch)
             if pipe:
-                batch = pipe(batch, generator)
-            if not batch["image"].is_floating_point():
-                batch["image"] = batch["image"].float()
+                if keys == ["image"]:
+                    batch = pipe(batch, generator)
+                else:  # each view its own draws, in the keys' sorted order
+                    for k in sorted(keys):
+                        batch[k] = pipe({"image": batch[k]}, generator)["image"]
+            for k in keys:
+                if not batch[k].is_floating_point():
+                    batch[k] = batch[k].float()
             # segmentation labels ride the device pipeline as 'mask' (its
             # geometric ops move them with the image); tasks take 'target'
             if "mask" in batch and "target" not in batch:
@@ -465,7 +481,7 @@ class Trainer:
             outputs, losses = train_step(batch)
             task.metrics_manager.update(Phase.TRAIN, 0, **outputs)
             return losses, 1
-        size = batch["image"].shape[0]
+        size = batch[image_keys(batch)[0]].shape[0]
         k, rem = divmod(size, micro_batch)
         bounds = [(i * micro_batch, (i + 1) * micro_batch) for i in range(k)]
         if rem:
@@ -629,7 +645,7 @@ class Trainer:
                     for k, v in losses.items():
                         loss_sums[k] = v if k not in loss_sums else loss_sums[k] + v
                     n_steps += 1
-                    n_images += batch["image"].shape[0]
+                    n_images += batch[image_keys(batch)[0]].shape[0]
             logs = {f"{phase.value}/{k}": float(v) / max(n_steps, 1)
                     for k, v in loss_sums.items()}
             logs.update(task.metrics_manager.on_epoch_end(phase))

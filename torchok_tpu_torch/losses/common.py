@@ -1,9 +1,11 @@
 """Losses the reference re-registers from ``torch.nn`` (reference:
 torchok/losses/__init__.py:13-34; port of ``torchok_tpu.losses.common``).
 
-Only ``CrossEntropyLoss`` is ported so far. Its arithmetic is written out as
-in ``torchok_tpu`` (f32 log-softmax, one-hot with smoothing, the class
-weight of the target applied to the whole smoothed term), so both packages
+``CrossEntropyLoss``, ``TripletMarginLoss`` and
+``TripletMarginWithDistanceLoss`` are ported so far. The cross-entropy's
+arithmetic is written out as in ``torchok_tpu`` (f32 log-softmax, one-hot
+with smoothing, the class weight of the target applied to the whole
+smoothed term), so both packages
 give the same value for every option. The class dimension is dim 1 of an
 ``(N, C)`` or ``(N, C, d1, ...)`` input, as in torch and TorchOk; the JAX
 package takes the same logits channels-last.
@@ -86,4 +88,64 @@ class CrossEntropyLoss:
         loss = torch.where(mask, loss, torch.zeros_like(loss))
         if self.reduction == "mean":
             return torch.sum(loss) / torch.clamp(torch.sum(mask), min=1)
+        return _reduce(loss, self.reduction)
+
+
+def _pairwise_distance(a: torch.Tensor, b: torch.Tensor, p: float = 2.0,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """``torchok_tpu``'s p-norm of ``|a - b| + eps`` over the last dim (torch's
+    ``pairwise_distance`` adds eps before the absolute value)."""
+    d = torch.abs(a - b) + eps
+    return torch.sum(d ** p, dim=-1) ** (1.0 / p)
+
+
+@LOSSES.register_class
+class TripletMarginLoss:
+    """``max(d(a, p) - d(a, n) + margin, 0)`` with the p-norm distance;
+    ``swap`` takes the smaller of d(a, n) and d(p, n)."""
+
+    def __init__(self, margin: float = 1.0, p: float = 2.0, eps: float = 1e-6,
+                 swap: bool = False, reduction: str = "mean"):
+        self.margin = margin
+        self.p = p
+        self.eps = eps
+        self.swap = swap
+        self.reduction = reduction
+
+    def __call__(self, anchor: torch.Tensor, positive: torch.Tensor,
+                 negative: torch.Tensor) -> torch.Tensor:
+        d_ap = _pairwise_distance(anchor, positive, self.p, self.eps)
+        d_an = _pairwise_distance(anchor, negative, self.p, self.eps)
+        if self.swap:
+            d_an = torch.minimum(d_an, _pairwise_distance(positive, negative, self.p, self.eps))
+        loss = torch.clamp(d_ap - d_an + self.margin, min=0.0)
+        return _reduce(loss, self.reduction)
+
+
+@LOSSES.register_class
+class TripletMarginWithDistanceLoss:
+    """``torch.nn.TripletMarginWithDistanceLoss`` with the distance named
+    (``euclidean`` or ``cosine``), since a YAML file carries no callable."""
+
+    def __init__(self, distance_function: str = "euclidean", margin: float = 1.0,
+                 swap: bool = False, reduction: str = "mean"):
+        self.distance_function = distance_function
+        self.margin = margin
+        self.swap = swap
+        self.reduction = reduction
+
+    def _dist(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.distance_function == "cosine":
+            cos = torch.sum(a * b, -1) / (torch.linalg.vector_norm(a, dim=-1)
+                                          * torch.linalg.vector_norm(b, dim=-1) + 1e-12)
+            return 1.0 - cos
+        return torch.linalg.vector_norm(a - b, dim=-1)
+
+    def __call__(self, anchor: torch.Tensor, positive: torch.Tensor,
+                 negative: torch.Tensor) -> torch.Tensor:
+        d_ap = self._dist(anchor, positive)
+        d_an = self._dist(anchor, negative)
+        if self.swap:
+            d_an = torch.minimum(d_an, self._dist(positive, negative))
+        loss = torch.clamp(d_ap - d_an + self.margin, min=0.0)
         return _reduce(loss, self.reduction)

@@ -149,9 +149,9 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([rgb, alpha[..., None]], axis=-1))
 
 
-def encode_png(image: np.ndarray) -> bytes:
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
     """An 8-bit gray (H, W), RGB or RGBA (H, W, 3|4) image as PNG bytes
-    (filter 0 on every row, zlib level 6)."""
+    (filter 0 on every row, zlib at ``level``)."""
     img = np.ascontiguousarray(image, np.uint8)
     if img.ndim == 2:
         img = img[..., None]
@@ -164,7 +164,7 @@ def encode_png(image: np.ndarray) -> bytes:
 
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
     return (_PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
 
 
 # ------------------------------------------------------------------ JPEG

@@ -5,6 +5,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import math
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -16,6 +17,34 @@ LN_100 = math.log(100.0)  # SwinV2 caps the learned temperature at 100
 # launches per path; a kernel wrapper adds one per kernel launch and a
 # dispatcher one per plain call, so a run can show which path it took
 LAUNCHES: collections.Counter = collections.Counter()
+
+# set while export traces a model: a kernel op called then raises
+_EXPORTING = threading.local()
+
+
+@contextlib.contextmanager
+def refusing_kernels():
+    """Make every kernel op raise inside the block (export): ``torch.export``
+    cannot trace a kernel bound through ``ctypes``, and tracing its plain
+    version instead would ship another computation than the model runs."""
+    previous = getattr(_EXPORTING, "on", False)
+    _EXPORTING.on = True
+    try:
+        yield
+    finally:
+        _EXPORTING.on = previous
+
+
+def refuse_in_export(kernel: str) -> None:
+    """Raise ``NotImplementedError`` naming ``kernel`` (its name in the
+    kernel table, "K1" to "K9") when called inside :func:`refusing_kernels`."""
+    if getattr(_EXPORTING, "on", False):
+        raise NotImplementedError(
+            f"the model's eval forward runs the hand-written kernel {kernel}, which is bound "
+            "through ctypes and cannot be traced by torch.export; exporting its plain version "
+            "instead would give another computation, so this model is not exported (export "
+            "through torch.library.custom_op is on the roadmap)")
+
 
 # the element types the kernels take, as their entry points number them
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -31,7 +31,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
+from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor, refuse_in_export
 
 KERNEL = "matmul_bn_fwd"
 PLAIN = "matmul_bn_plain"
@@ -235,6 +235,7 @@ def matmul_bn(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch
     x.dtype, s1 (N,) f32, s2 (N,) f32)`` where s1/s2 are the sum / sum of
     squares of the rounded y over M: feed them to :func:`bn_from_stats`.
     Differentiable in x, w, scale and bias."""
+    refuse_in_export("K7")
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
     return MatmulBnFunction.apply(x.contiguous(), w.contiguous(), scale, bias,

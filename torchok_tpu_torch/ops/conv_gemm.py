@@ -19,7 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
+from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor, refuse_in_export
 
 KERNEL = "conv3x3_gemm"
 PLAIN = "conv3x3_gemm_plain"
@@ -84,6 +84,7 @@ def conv3x3_gemm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 / stride 1 / zero padding 1 conv on NHWC ``x`` with HWIO ``w``."""
+    refuse_in_export("K8")
     if x.device.type == "cuda":
         return conv3x3_gemm_cuda(x, w)
     if x.device.type != "cpu":

@@ -36,7 +36,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
+from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor, refuse_in_export
 
 KERNEL = "mbconv_fused_fwd"
 PLAIN = "mbconv_fused_plain"
@@ -327,6 +327,7 @@ def mbconv_fused_cuda(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.T
 
 def mbconv_fused(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """One inference MBConv block on NHWC ``x`` (see the module's docstring)."""
+    refuse_in_export("K9")
     if x.device.type == "cuda":
         return mbconv_fused_cuda(x, p)
     if x.device.type != "cpu":

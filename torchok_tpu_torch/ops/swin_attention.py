@@ -42,7 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, LN_100, check_tensor
+from torchok_tpu_torch.ops.common import (DTYPE_CODE, LAUNCHES, LN_100, check_tensor,
+                                          refuse_in_export)
 
 _EPS = 1e-12
 
@@ -489,6 +490,7 @@ def fused_swin_attention(qkv: torch.Tensor, logit_scale: torch.Tensor,
         in ``qkv``, ``logit_scale`` and ``bias`` (the exp/clamp of the scale
         is left to autograd).
     """
+    refuse_in_export("K1")
     scale = torch.exp(torch.clamp(logit_scale.float(), max=LN_100)).contiguous()
     bias = bias.float().contiguous()
     mask = None if mask is None else mask.float().contiguous()

@@ -38,7 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from torchok_tpu_torch.ops import swin_attention
-from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, LN_100, check_tensor
+from torchok_tpu_torch.ops.common import (DTYPE_CODE, LAUNCHES, LN_100, check_tensor,
+                                          refuse_in_export)
 
 _EPS = 1e-12
 
@@ -272,6 +273,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     blocks, so ``blhd`` callers are transposed around it."""
     if not use_kernel:
         return window_attention_einsum(q, k, v, logit_scale, bias, mask, layout)
+    refuse_in_export("K6")
     if layout not in ("bhld", "blhd"):
         raise ValueError(f"layout must be 'bhld' or 'blhd', got {layout!r}")
     if layout == "blhd":

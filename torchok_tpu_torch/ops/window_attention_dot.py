@@ -51,7 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from torchok_tpu_torch.ops import swin_attention
-from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor
+from torchok_tpu_torch.ops.common import DTYPE_CODE, LAUNCHES, check_tensor, refuse_in_export
 from torchok_tpu_torch.ops.swin_attention import (_MMA_TILE, _fwd_tile_rows, _images_per_block,
                                                   from_windows, mma_images_per_block,
                                                   to_windows)
@@ -620,6 +620,7 @@ def window_attention_spatial(proj: torch.Tensor, scale: torch.Tensor,
     ``proj`` is the fused qkv projection (3C channels) when ``q_global`` is
     None, else the kv projection (2C) with ``q_global`` the image's (B, L, C)
     shared queries."""
+    refuse_in_export("K3a" if q_global is None else "K4")
     if q_global is not None:
         if bias is None:
             raise ValueError("global-query window attention needs its bias")

@@ -268,10 +268,20 @@ class CyclicLR(BaseLRScheduler):
 
 @SCHEDULERS.register_class(name="OneCycleLR")
 class OneCycleLR(BaseLRScheduler):
-    def __init__(self, max_lr: float, total_steps: int, pct_start: float = 0.3,
-                 div_factor: float = 25.0, final_div_factor: float = 1e4,
-                 anneal_strategy: str = "cos", **_):
+    """``total_steps``, or ``epochs`` x ``steps_per_epoch`` as
+    ``torch.optim.lr_scheduler.OneCycleLR`` takes them (``configs/
+    pairwise_sop.yaml`` gives the two; the JAX package's class takes only
+    ``total_steps``)."""
+
+    def __init__(self, max_lr: float, total_steps: Optional[int] = None,
+                 pct_start: float = 0.3, div_factor: float = 25.0,
+                 final_div_factor: float = 1e4, anneal_strategy: str = "cos",
+                 epochs: Optional[int] = None, steps_per_epoch: Optional[int] = None, **_):
         super().__init__()
+        if total_steps is None:
+            if epochs is None or steps_per_epoch is None:
+                raise ValueError("OneCycleLR needs total_steps, or epochs and steps_per_epoch")
+            total_steps = int(epochs) * int(steps_per_epoch)
         self.max_lr = max_lr
         self.total_steps = total_steps
         self.pct_start = pct_start

@@ -27,6 +27,11 @@ _PRECISION_TO_DTYPE = {
 }
 
 
+def input_shapes(inputs: Optional[list]) -> List[Tuple[int, ...]]:
+    """The CHW shape of each ``inputs`` spec of a task's config."""
+    return [tuple(int(d) for d in spec["shape"]) for spec in inputs or []]
+
+
 def size_to_inputs(backbone: nn.Module, inputs: Optional[list]) -> None:
     """A backbone whose parameter shapes follow its input (BEiT's position
     tables: ``set_input_size``) takes the (H, W) of the first ``inputs``
@@ -48,6 +53,8 @@ class BaseTask:
                              f"(one of {sorted(map(str, _PRECISION_TO_DTYPE))})")
         self.compute_dtype: Optional[torch.dtype] = _PRECISION_TO_DTYPE[precision]
         self.model: Optional[nn.Module] = None  # set by subclass
+        # CHW of each ``inputs`` spec: the example input export traces with
+        self.input_shapes: List[Tuple[int, ...]] = []
 
     @property
     def hparams(self) -> ConfigNode:
@@ -74,8 +81,14 @@ class BaseTask:
 
     def no_weight_decay(self) -> List[str]:
         """Parameter-path fragments the backbone keeps out of weight decay."""
-        backbone = getattr(self.model, "backbone", None)
+        backbone = getattr(self.as_module(), "backbone", None)
         return list(getattr(backbone, "no_weight_decay", lambda: [])())
+
+    def as_module(self) -> nn.Module:
+        """The model whose ``forward_image`` export traces (``torchok_tpu``'s
+        ``as_module``); a wrapper task (pairwise, triplet, SimCLR) gives the
+        classification model it wraps."""
+        return self.model
 
     def compute_loss(self, outputs: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Map step outputs to the joint loss: (f32 total, tagged values)."""

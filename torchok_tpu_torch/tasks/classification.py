@@ -10,6 +10,7 @@ representation mode.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -18,7 +19,23 @@ from torch import nn
 from torchok_tpu_torch.constructor import BACKBONES, HEADS, NECKS, POOLINGS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
 from torchok_tpu_torch.ops.common import trunc_normal_init
-from torchok_tpu_torch.tasks.base import BaseTask, size_to_inputs
+from torchok_tpu_torch.tasks.base import BaseTask, input_shapes, size_to_inputs
+
+
+@contextlib.contextmanager
+def inference_forward(module: nn.Module):
+    """Run ``module`` in eval mode inside the block, whatever its mode, and
+    put every submodule's mode back afterwards. The wrapper tasks' training
+    forwards go through ``torchok_tpu``'s ``ClassificationModel.forward``,
+    which runs with ``train=False``: BatchNorm on its running statistics
+    (which stay as they are), no dropout."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 def forward_aux_keys(batch: Dict[str, Any], output: Dict[str, Any]) -> Dict[str, Any]:
@@ -53,6 +70,19 @@ class ClassificationModel(nn.Module):
             output["target"] = target
         return forward_aux_keys(batch, output)
 
+    def forward_image(self, image: torch.Tensor) -> torch.Tensor:
+        """The inference forward (``torchok_tpu``'s ``ClassificationModel.
+        forward``): backbone, neck, pooling and head on an image batch, with
+        no target. Export and the wrapper tasks call it."""
+        x = self.backbone(image)
+        if self.neck is not None:
+            x = self.neck(x)
+        if self.pooling is not None:
+            x = self.pooling(x)
+        if self.head is not None:
+            x = self.head(x)
+        return x
+
 
 @TASKS.register_class
 class ClassificationTask(BaseTask):
@@ -72,6 +102,7 @@ class ClassificationTask(BaseTask):
         super().__init__(hparams, **kwargs)
         backbone = BACKBONES.get(backbone_name)(**dict(backbone_params or {}))
         size_to_inputs(backbone, inputs)
+        self.input_shapes = input_shapes(inputs)
 
         in_channels = backbone.out_channels
         neck = None
@@ -89,10 +120,11 @@ class ClassificationTask(BaseTask):
         self.model = ClassificationModel(backbone, neck, pooling, head)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        trunc_normal_init(self.model, generator)
+        model = self.as_module()
+        trunc_normal_init(model, generator)
         # a part with an initial law of its own (ResNet, HRNet and its necks:
         # fan_out convs, zero-initialised last norms; PoolingLinear: nn.Dense's;
         # ArcFaceHead: Xavier) draws it after the shared one
-        for part in (self.model.backbone, self.model.neck, self.model.pooling, self.model.head):
+        for part in (model.backbone, model.neck, model.pooling, model.head):
             if hasattr(part, "init_weights"):
                 part.init_weights(generator)

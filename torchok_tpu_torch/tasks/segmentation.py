@@ -14,7 +14,7 @@ from torch import nn
 
 from torchok_tpu_torch.constructor import BACKBONES, HEADS, NECKS, TASKS
 from torchok_tpu_torch.constructor.config import ConfigNode
-from torchok_tpu_torch.tasks.base import BaseTask, size_to_inputs
+from torchok_tpu_torch.tasks.base import BaseTask, input_shapes, size_to_inputs
 
 
 class SegmentationModel(nn.Module):
@@ -36,6 +36,11 @@ class SegmentationModel(nn.Module):
             output["target"] = target
         return output
 
+    def forward_image(self, image: torch.Tensor) -> Any:
+        """The inference forward (``torchok_tpu``'s ``SegmentationModel.
+        forward``): the head's logits for an image batch."""
+        return self.head(self.neck(self.backbone.forward_features(image)))
+
 
 @TASKS.register_class
 class SegmentationTask(BaseTask):
@@ -53,6 +58,7 @@ class SegmentationTask(BaseTask):
         super().__init__(hparams, **kwargs)
         backbone = BACKBONES.get(backbone_name)(**dict(backbone_params or {}))
         size_to_inputs(backbone, inputs)
+        self.input_shapes = input_shapes(inputs)
         neck = NECKS.get(neck_name)(in_channels=tuple(backbone.out_encoder_channels),
                                     **dict(neck_params or {}))
         head = HEADS.get(head_name)(in_channels=neck.out_channels, **dict(head_params or {}))

@@ -63,6 +63,10 @@ poolings take the plain path (the segmentation head's ``classifier`` is a
 ``ArcFaceHead``'s ``weight`` is no ``kernel``, so it keeps its
 (num_classes, in_channels) layout.
 
+A wrapper task's model (pairwise, triplet, SimCLR) holds its classification
+model under ``inner`` in both packages: its keys take an ``inner.`` prefix
+(``LinearHead``'s Dense is ``fc``, as the plain path carries it).
+
 ``task_name_map`` gives the same correspondence by name (port key -> Flax
 path) for one collection and ``state_dict_to_task_flax`` carries a port
 ``state_dict`` back into the Flax tree of that collection, so parameters,
@@ -424,18 +428,30 @@ def flax_to_state_dict(name: str, variables: Mapping[str, Any],
     return out
 
 
+def _parts(tree: Mapping[str, Any], prefix: str = "", path: Tuple[str, ...] = ()):
+    """(state_dict prefix, Flax path, part name, sub-tree) of each part of a
+    task's tree. A wrapper task's model (pairwise, triplet, SimCLR) holds
+    its classification model under ``inner``, in both packages."""
+    for part, sub in tree.items():
+        if part == "inner":
+            yield from _parts(sub, f"{prefix}inner.", path + ("inner",))
+        else:
+            yield f"{prefix}{part}.", path + (part,), part, sub
+
+
 def task_flax_to_state_dict(backbone_name: str,
                             variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """Carry a whole classification, segmentation or detection model (the
     ``backbone``, ``neck``, ``pooling``, ``head`` and ``bbox_head`` sub-trees
     it has of a ``torchok_tpu`` task's params and, where it has them,
     batch_stats) into the state_dict of the port's ``ClassificationModel``,
-    ``SegmentationModel`` or ``DetectionModel``."""
+    ``SegmentationModel`` or ``DetectionModel``, or of a wrapper task's
+    model, whose classification model sits under ``inner``."""
     out: Dict[str, np.ndarray] = {}
     for tree in _collections(variables).values():
-        for part, sub in tree.items():
+        for prefix, _, part, sub in _parts(tree):
             name = backbone_name if part == "backbone" else part
-            out.update(flax_to_state_dict(name, sub, prefix=f"{part}."))
+            out.update(flax_to_state_dict(name, sub, prefix=prefix))
     return out
 
 
@@ -446,15 +462,15 @@ def task_name_map(backbone_name: str, variables: Mapping[str, Any],
     DETR attention's packed ``in_proj_*`` names its q leaf (q, k and v share
     their groups' labels)."""
     out: Dict[str, Tuple[str, ...]] = {}
-    for part, tree in _collections(variables).get(collection, {}).items():
+    for prefix, where, part, tree in _parts(_collections(variables).get(collection, {})):
         if _is_detr(tree):
             for path, _ in _leaves(tree):
                 if path[-2:-1] not in (("key",), ("value",)):
-                    out[_detr_key(path, f"{part}.")] = (part,) + path
+                    out[_detr_key(path, prefix)] = where + path
             continue
         mapper = _path_mapper(backbone_name if part == "backbone" else part, tree)
         for path, _ in _leaves(tree):
-            out[_key(mapper, path, f"{part}.")] = (part,) + path
+            out[_key(mapper, path, prefix)] = where + path
     return out
 
 
@@ -465,11 +481,15 @@ def state_dict_to_task_flax(backbone_name: str, state_dict: Mapping[str, Any],
     a nested dict shaped like one collection of the Flax ``variables``."""
     out: Dict[str, Any] = {}
     trees = _collections(variables).get(collection, {})
-    detr = {part for part, tree in trees.items() if _is_detr(tree)}
-    for part in detr:
-        out[part] = _detr_to_flax(state_dict, f"{part}.", trees[part])
+    detr = {where for _, where, _, tree in _parts(trees) if _is_detr(tree)}
+    for prefix, where, _, tree in _parts(trees):
+        if where in detr:
+            node = out
+            for p in where[:-1]:
+                node = node.setdefault(p, {})
+            node[where[-1]] = _detr_to_flax(state_dict, prefix, tree)
     for key, path in task_name_map(backbone_name, variables, collection).items():
-        if path[0] in detr:
+        if any(path[:len(where)] == where for where in detr):
             continue
         node = out
         for p in path[:-1]:
