@@ -240,8 +240,24 @@
      layer's logits and boxes) on the card within 1e-3 of the CPU's;
    * in a process of their own (``chip_smoke.py --side-phases``,
      ``SIDE_PHASES``), started once the op paths are done and joined before
-     the DETR draws (its output printed then), two phases. First
-     ``configs/segmentation_sweet_pepper.yaml``
+     the DETR draws (its output printed then), three phases. First the
+     geometry of ``spatial.py`` (``run_spatial_recipe``): each of its
+     device paths (``SPATIAL_DEVICE_CASES``: the affine, projective and
+     distortion warps, the crops and resizes, the permutations, the pads)
+     on 8 uint8 and float32 images of 256x256 and their masks on the card
+     against the CPU under the same draws, equal where a case is exact and
+     every mask, else within one uint8 level on 1% of the values and 1e-4
+     in float32; then ``configs/classification_swinv2_tiny_spatial_aug_train.yaml``
+     (``SPATIAL_TRAIN_CONFIG``): swinv2_tiny at full width, bf16, bs 64, 12
+     steps on uint8 288x288 images whose whole TRAIN pipeline
+     (RandomResizedCrop, HorizontalFlip, ShiftScaleRotate, Perspective,
+     RandomRotate90, Normalize, ToTensorV2) runs in the device suffix (the
+     split printed): 12 K1 a forward and 12 K2 a step, no plain call (the
+     launches handed to the main process's kernels line), a finite loss,
+     every parameter moved; then the host ms a sample of each new host
+     transform at 256 to 400 px in a loader worker process, and no cv2, jax
+     or torchok_tpu in that worker or this process; its seconds by part.
+     Then ``configs/segmentation_sweet_pepper.yaml``
      (``SWEET_PEPPER_RECIPE``) verbatim but for its cuts: its TRAIN
      pipeline (flips, Compose(p 0.5) of PadIfNeeded and CenterCrop, two
      OneOf(p 1) over ElasticTransform, GridDistortion, GaussNoise and
@@ -1328,6 +1344,93 @@ def stablehlo_infer_config(artifact: str, data_folder: str, log_dir: str):
             "CIFAR10's md5 of each batch file -> none (the written files are not CIFAR-10's)",
             "logger TensorBoardLogger -> CSVLogger"]
     return cfg, cuts
+
+
+# configs/classification_swinv2_tiny_spatial_aug_train.yaml: swinv2_tiny at
+# full width trained through a device geometry suffix on uint8 288x288 images
+SPATIAL_SIZE = 288
+SPATIAL_BATCH = 64
+SPATIAL_STEPS = 12
+SPATIAL_SUFFIX = ["RandomResizedCrop", "HorizontalFlip", "ShiftScaleRotate", "Perspective",
+                  "RandomRotate90", "Normalize", "ToTensorV2"]
+SPATIAL_TRAIN_CONFIG = {
+    "task": _task("swinv2_tiny_window8_256", 256),
+    "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
+                               "mapping": {"input": "prediction", "target": "target"}}]},
+    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
+    "data": {
+        "TRAIN": [{
+            "dataloader": {"batch_size": SPATIAL_BATCH, "num_workers": 2, "drop_last": True,
+                           "shuffle": True},
+            "dataset": {
+                "name": "SyntheticClassificationDataset",
+                "params": {"num_samples": 1024, "num_classes": 1000,
+                           "image_size": [SPATIAL_SIZE, SPATIAL_SIZE]},
+                "augment": [{"name": "RandomResizedCrop", "params": {"height": 256, "width": 256}},
+                            {"name": "HorizontalFlip"}, {"name": "ShiftScaleRotate"},
+                            {"name": "Perspective"}, {"name": "RandomRotate90"}],
+                "transform": [{"name": "Normalize"}, {"name": "ToTensorV2"}]}}],
+        "VALID": _synthetic(SPATIAL_BATCH, False, False, 256, SPATIAL_BATCH, seed=1)},
+    "trainer": {"accelerator": "gpu", "precision": 16, "max_epochs": 1,
+                "limit_train_batches": SPATIAL_STEPS, "log_every_n_steps": 1},
+    "seed_params": {"seed": 42},
+    "metrics": [{"name": "Accuracy", **_METRIC}],
+}
+# swinv2_tiny's pyramid norms of stages 1 to 3 feed no classification head:
+# they get no gradient and must stay as they were
+SPATIAL_UNUSED = ("backbone.feature_norms.0.", "backbone.feature_norms.1.",
+                  "backbone.feature_norms.2.")
+# every device path of the slice, card against CPU under the same draws:
+# (name, params, exact); exact for crops, permutations and nearest sampling,
+# a bound for the bilinear ones (SPATIAL_LEVEL_SHARE, SPATIAL_FLOAT_TOL)
+SPATIAL_DEVICE_CASES = (
+    ("Rotate", {"limit": 30, "p": 0.7}, False),
+    ("Rotate", {"limit": 45, "border_mode": 0, "value": 7, "mask_value": 3, "interpolation": 0,
+                "p": 0.7}, True),
+    ("SafeRotate", {"limit": 60, "border_mode": 1, "p": 0.7}, False),
+    ("ShiftScaleRotate", {"p": 0.7}, False),
+    ("Affine", {"scale": 0.2, "translate_percent": 0.1, "rotate": 20, "shear": 10, "p": 0.7},
+     False),
+    ("Affine", {"rotate": 30, "interpolation": 0, "p": 0.7}, True),
+    ("Perspective", {"scale": (0.05, 0.15), "p": 0.7}, False),
+    ("Perspective", {"scale": 0.1, "interpolation": 0, "p": 0.7}, True),
+    ("OpticalDistortion", {"distort_limit": 0.5, "shift_limit": 0.1, "p": 0.7}, False),
+    ("OpticalDistortion", {"distort_limit": 0.8, "border_mode": 0, "interpolation": 0,
+                           "p": 0.7}, True),
+    ("RandomResizedCrop", {"height": 224, "width": 224}, False),
+    ("RandomSizedCrop", {"min_max_height": (128, 256), "height": 224, "width": 224}, False),
+    ("RandomRotate90", {"p": 0.7}, True),
+    ("Transpose", {"p": 0.5}, True),
+    ("RandomGridShuffle", {"grid": (3, 3), "p": 0.7}, True),
+    ("CropAndPad", {"px": [-20, 30, 40, -10], "p": 0.7}, False),
+    ("CropAndPad", {"percent": 0.1, "pad_mode": 4, "interpolation": 0, "p": 0.7}, True),
+    ("FitResize", {"max_height": 200, "max_width": 180}, False),
+    ("FitResize", {"max_height": 300, "max_width": 400, "interpolation": 0}, True),
+    ("PadIfNeeded", {"min_height": 300, "min_width": 280}, True),
+    ("PadIfNeeded", {"min_height": 320, "min_width": 300, "border_mode": 0, "value": 7,
+                     "mask_value": 3}, True),
+    ("LongestMaxSize", {"max_size": 200}, False),
+    ("SmallestMaxSize", {"max_size": 300, "interpolation": 0}, True),
+    ("Crop", {"x_min": 10, "y_min": 20, "x_max": 200, "y_max": 230}, True),
+)
+SPATIAL_LEVEL_SHARE = 0.01
+SPATIAL_FLOAT_TOL = 1e-4
+# each new host transform, forced, timed in a loader worker process
+SPATIAL_HOST_CASES = (
+    ("Rotate", {}), ("SafeRotate", {}), ("ShiftScaleRotate", {}),
+    ("Affine", {"scale": 0.1, "rotate": 20, "shear": 5}), ("Perspective", {}),
+    ("OpticalDistortion", {}), ("Crop", {"x_max": 200, "y_max": 200}),
+    ("RandomResizedCrop", {"height": 256, "width": 256}),
+    ("RandomSizedCrop", {"min_max_height": (128, 256), "height": 256, "width": 256}),
+    ("LongestMaxSize", {"max_size": 256}), ("SmallestMaxSize", {"max_size": 256}),
+    ("FitResize", {"max_height": 256, "max_width": 256}),
+    ("PadIfNeeded", {"min_height": 400, "min_width": 400}), ("CropAndPad", {"px": (-20, 20)}),
+    ("RandomRotate90", {}), ("Transpose", {}), ("RandomGridShuffle", {}), ("RandomScale", {}),
+    ("BBoxSafeRandomCrop", {"erosion_rate": 0.2}),
+    ("RandomSizedBBoxSafeCrop", {"height": 256, "width": 256}), ("RandomCropFromBorders", {}),
+    ("RandomCropNearBBox", {}), ("CropNonEmptyMaskIfExists", {"height": 256, "width": 256}),
+    ("PiecewiseAffine", {}), ("MaskDropout", {"max_objects": 2}), ("Lambda", {}),
+)
 
 
 def modules_loaded(names=("cv2", "jax", "torchok_tpu")):
@@ -4776,6 +4879,235 @@ def run_augment_recipe():
              f"{tuple(batch['image'].shape)}, expected uint8 (8, 256, 256, 3)")
 
 
+def spatial_arrays(n: int, size: int, seed: int = 0):
+    """``n`` uint8 RGB images (n, size, size, 3) with smooth gradients and
+    noise, and int32 masks of blobs in three classes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    base = np.stack([xx, yy, (xx + yy) / 2], -1) * 200
+    images = np.clip(base[None] + rng.normal(0, 25, (n, size, size, 3)), 0, 255).astype(np.uint8)
+    masks = np.zeros((n, size, size), np.int32)
+    for i in range(n):
+        for c, (cy, cx, r) in enumerate(rng.uniform(0.2, 0.8, (3, 3)) * [size, size, size / 3]):
+            masks[i][(yy * size - cy) ** 2 + (xx * size - cx) ** 2 < r * r] = c + 1
+    return images, masks
+
+
+def check_spatial_devices(images, masks, device):
+    """Each device path of the slice (``SPATIAL_DEVICE_CASES``) on a card
+    batch against the same batch on the CPU under the same draws
+    (``draw_batch`` on the CPU, ``apply_drawn`` on both): uint8 and float32
+    images (float ones in [0, 1]) and masks. Exact cases and every mask must
+    be equal; other uint8 images within one level on at most
+    ``SPATIAL_LEVEL_SHARE`` of the values, float ones within
+    ``SPATIAL_FLOAT_TOL``. Returns the worst (difference, share) of the
+    bilinear cases."""
+    import torch
+    from torchok_tpu_torch.constructor import TRANSFORMS
+    worst_all = [0.0, 0.0]
+    for i, (name, params, exact) in enumerate(SPATIAL_DEVICE_CASES):
+        t = TRANSFORMS.get(name)(**params)
+        if not t.device_capable:
+            fail(f"spatial devices: {name} {params} has no device path")
+        draws = (t.draw_batch(images.shape[:3], torch.Generator().manual_seed(i),
+                              torch.device("cpu")) if hasattr(t, "draw_batch") else None)
+        for dtype in ("uint8", "float32"):
+            x = torch.from_numpy(images)
+            x = x if dtype == "uint8" else x.float() / 255.0
+            host = {"image": x, "mask": torch.from_numpy(masks)}
+            card = {k: v.to(device) for k, v in host.items()}
+            if draws is None:
+                want, got = t.apply_batch(host, None), t.apply_batch(card, None)
+            else:
+                want, got = t.apply_drawn(host, *draws), t.apply_drawn(card, *draws)
+            torch.cuda.synchronize()
+            if not torch.equal(got["mask"].cpu(), want["mask"]):
+                fail(f"spatial devices: {name} ({dtype}) moved the masks otherwise on the card")
+            a, b = got["image"].cpu(), want["image"]
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"spatial devices: {name} ({dtype}) gave {a.dtype} {tuple(a.shape)} on "
+                     f"the card, {b.dtype} {tuple(b.shape)} on the CPU")
+            diff = (a.double() - b.double()).abs()
+            worst, share = diff.max().item(), (diff > 0).double().mean().item()
+            print(f"spatial devices: {name} {params} ({dtype}) card vs CPU, same draws: "
+                  f"largest difference {worst:.3e} on {share:.2e} of the values, output "
+                  f"{tuple(a.shape)}", flush=True)
+            if exact and worst != 0:
+                fail(f"spatial devices: {name} ({dtype}) must be equal, differs by {worst}")
+            if dtype == "uint8" and not (worst <= 1 and share <= SPATIAL_LEVEL_SHARE):
+                fail(f"spatial devices: {name} (uint8) differs by {worst} on {share:.2e}")
+            if dtype == "float32" and not worst <= SPATIAL_FLOAT_TOL:
+                fail(f"spatial devices: {name} (float32) differs by {worst:.3e}")
+            if dtype == "uint8" and not exact:
+                worst_all = [max(worst_all[0], worst), max(worst_all[1], share)]
+    return worst_all
+
+
+def time_spatial_host(reps: int = 1, n: int = 8):
+    """Host ms a sample of each transform of ``SPATIAL_HOST_CASES`` (forced)
+    on uint8 images of 256 to 400 px a side with masks and boxes, and the
+    modules of cv2, jax and torchok_tpu loaded; run in a loader worker
+    process."""
+    import numpy as np
+    from torchok_tpu_torch.constructor import TRANSFORMS
+    from torchok_tpu_torch.data.transforms.base import sample_generator
+    rng = np.random.default_rng(5)
+    samples = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(256, 401, 2))
+        image = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        mask = np.zeros((h, w), np.uint8)
+        mask[h // 4:h // 2, w // 5:w // 2] = 1
+        mask[2 * h // 3:, 3 * w // 4:] = 2
+        boxes = np.array([[w * 0.2, h * 0.25, w * 0.5, h * 0.5]], np.float32)
+        samples.append({"image": image, "mask": mask, "bboxes": boxes,
+                        "cropping_bbox": [w * 0.3, h * 0.3, w * 0.6, h * 0.7]})
+    out = {}
+    for name, params in SPATIAL_HOST_CASES:
+        t = TRANSFORMS.get(name)(**params)
+        keep = [s if t.handles_bboxes or not t.geometric else
+                {k: v for k, v in s.items() if k != "bboxes"} for s in samples]
+        t(force_apply=True, **keep[0])  # warm-up: lazy imports (scipy for MaskDropout)
+        start = time.perf_counter()
+        for r in range(reps):
+            for i, sample in enumerate(keep):
+                with sample_generator(np.random.default_rng([r, i])):
+                    t(force_apply=True, **sample)
+        out[name] = (time.perf_counter() - start) * 1e3 / (reps * n)
+    return out, modules_loaded()
+
+
+def run_spatial_recipe():
+    """The slice's geometry on the card, in three parts. (a) Each device path
+    of ``spatial.py`` against its CPU path under the same draws, on 8
+    images of 256x256 (:func:`check_spatial_devices`). (b)
+    ``configs/classification_swinv2_tiny_spatial_aug_train.yaml``
+    (``SPATIAL_TRAIN_CONFIG``) through ``run(..., "train")``: swinv2_tiny at
+    full width, bf16, bs 64, ``SPATIAL_STEPS`` steps on uint8 288x288
+    images, its TRAIN pipeline (RandomResizedCrop, HorizontalFlip,
+    ShiftScaleRotate, Perspective, RandomRotate90, Normalize, ToTensorV2)
+    wholly in the device suffix; 12 K1 launches a forward and 12 K2 a step
+    and no plain call, a finite loss, the step count, every parameter
+    moved but the three pyramid norms no head reads (``SPATIAL_UNUSED``,
+    which must stay), the suffix's ms a batch. The launches are printed on a ``spatial launches:`` line, which
+    the main process adds to the kernels line. (c) The host ms a sample of
+    each new host transform in a loader worker process
+    (:func:`time_spatial_host`), and no cv2, jax or torchok_tpu in this
+    process or that worker."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor.constructor import Constructor
+    from torchok_tpu_torch.engine.callbacks import Callback
+    from torchok_tpu_torch.ops import swin_attention as swin
+
+    start = time.perf_counter()
+    parts = {}  # the phase's seconds by part
+
+    def lap(name):
+        parts[name] = time.perf_counter() - start - sum(parts.values())
+
+    card = card_line()
+    from torchok_tpu_torch.utils.cuda_build import load_libraries
+    load_libraries((swin.KERNEL, swin.KERNEL_BWD))  # built by the main process, or here
+    lap("K1 and K2 loaded")
+    images, masks = spatial_arrays(8, 256)
+    worst = check_spatial_devices(images, masks, torch.device("cuda", 0))
+    lap("device paths")
+
+    cfg = copy.deepcopy(SPATIAL_TRAIN_CONFIG)
+    dataset = cfg["data"]["TRAIN"][0]["dataset"]
+    host, suffix = Constructor._create_transforms(
+        copy.deepcopy(dataset["augment"] + dataset["transform"])).split_device_suffix(
+        uniform_shapes=True)
+    suffix = [type(t).__name__ for t in suffix]
+    print(f"spatial recipe: host prefix {[type(t).__name__ for t in host.transforms]}, device "
+          f"suffix {suffix}", flush=True)
+    if host.transforms or suffix != SPATIAL_SUFFIX:
+        fail(f"spatial recipe: the split left {host.transforms} on the host")
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.initial, self.losses = {}, []
+
+        def on_fit_start(self, trainer, task):
+            self.initial = {k: v.detach().clone()
+                            for k, v in trainer.state.model.named_parameters()}
+
+        def on_train_batch_end(self, trainer, task, step, logs):
+            self.losses.append(float(logs["loss"]))
+
+    recorder = Recorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from torchok_tpu_torch.ops.common import LAUNCHES
+    LAUNCHES.clear()
+    trainer, logs = run(cfg, "train", [recorder])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lap("train")
+    peak = torch.cuda.max_memory_allocated()
+    stats = trainer.last_fit
+    forwards = SPATIAL_STEPS + 2  # one sanity and one validation batch
+    require_launches("spatial recipe train", counts,
+                     {swin.KERNEL: 12 * forwards, swin.KERNEL_BWD: 12 * SPATIAL_STEPS})
+    print("spatial launches: " + json.dumps(counts), flush=True)
+    moved = {name: not torch.equal(value, recorder.initial[name])
+             for name, value in trainer.state.model.named_parameters()}
+    loss = logs.get("train/loss", float("nan"))
+    # the device suffix alone on a batch of the run's images, CUDA events
+    dataset = trainer.task.train_dataloader()[0].dataset
+    card_batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+                  dataset.get_batch(np.arange(SPATIAL_BATCH)).items() if k == "image"}
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    geometry_ms = median_ms(lambda: dataset.device_pipeline(card_batch, generator))
+    lap("geometry timed")
+
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("forkserver")) as pool:
+        host_ms, in_worker = pool.submit(time_spatial_host).result(timeout=300)
+    lap("host ms in a worker")
+    in_main = modules_loaded()
+    print("spatial recipe: host ms a sample (uint8, 256 to 400 px, forced, in a loader worker "
+          "process): " + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items()) + f" on {card}",
+          flush=True)
+    print(f"spatial recipe (swinv2_tiny_window8_256, 1000 classes, {SPATIAL_SIZE}x{SPATIAL_SIZE} "
+          f"uint8 -> 256x256 on the card, bs {SPATIAL_BATCH}, bf16): train/loss={loss:.6f} after "
+          f"{trainer.global_step} steps (per step: "
+          + " ".join(f"{v:.4f}" for v in recorder.losses) + f"); valid/Accuracy="
+          f"{logs.get('valid/Accuracy', float('nan')):.6f}; smoke train img/s "
+          f"{stats['images'] / stats['seconds']:.2f} (host clock, {stats['images']} images in "
+          f"{stats['seconds']:.3f} s, the geometry on the card); the device suffix "
+          f"{geometry_ms:.4f} ms a batch of {SPATIAL_BATCH} (CUDA events, median); peak device "
+          f"memory {peak / 2**20:.1f} MiB; launches {counts}, 0 plain calls; "
+          f"{sum(moved.values())} of {len(moved)} parameters moved, the {len(moved) - sum(moved.values())} "
+          f"unmoved {sorted(k for k, v in moved.items() if not v)}; bilinear card vs CPU worst "
+          f"{worst[0]:.0f} level on "
+          f"{worst[1]:.2e} of the uint8 values; modules loaded of cv2, jax, torchok_tpu: "
+          f"{in_main} here, {in_worker} in a loader worker; phase "
+          f"{time.perf_counter() - start:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") on {card}", flush=True)
+    if not math.isfinite(loss) or not all(math.isfinite(v) for v in recorder.losses):
+        fail(f"spatial recipe: a loss is not finite: {recorder.losses}")
+    if trainer.global_step != SPATIAL_STEPS or stats["steps"] != SPATIAL_STEPS:
+        fail(f"spatial recipe: {trainer.global_step} steps, expected {SPATIAL_STEPS}")
+    wrong = [k for k, v in moved.items() if v == k.startswith(SPATIAL_UNUSED)]
+    if wrong:
+        fail(f"spatial recipe: parameters that did not move, or moved without a gradient "
+             f"path (SPATIAL_UNUSED): {wrong[:5]}")
+    if in_main or in_worker:
+        fail(f"spatial recipe: loaded {in_main} here and {in_worker} in a loader worker")
+
+
+def side_launches(text):
+    """The kernel launches a side phase printed on its ``spatial launches:``
+    line, or {}."""
+    found = re.findall(r"^spatial launches: (\{.*\})$", text, re.M)
+    return json.loads(found[-1]) if found else {}
+
+
 def witness_hit(state, k=1):
     """HitAtKMeter's value recomputed in numpy from the state its last
     ``compute`` was given: the epoch's embeddings normalised by row in f64,
@@ -5268,7 +5600,8 @@ def check_kernel_export_refused():
 # process of their own once the kernel timings are done. They read and
 # augment files and export models, so they use the host's cores and little
 # of the card, and they end before the main process's later phases do
-SIDE_PHASES = (("sweet_pepper", run_augment_recipe), ("sop", run_sop_recipes))
+SIDE_PHASES = (("spatial", run_spatial_recipe), ("sweet_pepper", run_augment_recipe),
+               ("sop", run_sop_recipes))
 
 
 def start_side_phases(log_dir):
@@ -5478,9 +5811,15 @@ def main() -> None:
     stamp("detr_gcvit at full width")
     run_detr_full_width(records)
     stamp("side phases, joined")
-    failures, _ = wait_processes(side_phases)
+    failures, texts = wait_processes(side_phases)
     if failures:
         fail("side phases: " + "; ".join(failures))
+    # the spatial recipe's K1 and K2 launches, counted in the side process
+    spatial = side_launches(texts["side phases"])
+    if not spatial.get(swin.KERNEL) or not spatial.get(swin.KERNEL_BWD):
+        fail(f"side phases: no K1 and K2 launches reported by the spatial recipe: {spatial}")
+    for kernel, count in spatial.items():
+        records[kernel]["launches"] += count
     stamp("detr recipe, joined")
     finish_detr_recipe(detr_recipe)
 

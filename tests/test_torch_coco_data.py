@@ -68,7 +68,8 @@ def test_fit_resize_matches_jax(h, w):
                                   ref.apply_to_bboxes(BOXES, img.shape))
     float_img = img.astype(np.float32) / 255.0
     np.testing.assert_allclose(port.apply(float_img), ref.apply(float_img), rtol=0, atol=1e-5)
-    assert port.geometric and not port.device_bbox_safe and not port.device_capable
+    assert port.geometric and not port.device_bbox_safe
+    assert port.device_capable == ref.device_capable and port.device_needs_uniform
 
 
 @pytest.mark.parametrize("border_mode", [0, 1, 2, 3, 4])

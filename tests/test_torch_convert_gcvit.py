@@ -10,6 +10,7 @@ torch.nn.functional re-implementation."""
 import math
 
 import numpy as np
+import pytest
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +28,16 @@ HEADS = (2, 2)
 WS = 4
 LS = 0.1
 MLP_RATIO = 2.0
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the oracle: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _rand(gen, *shape):
@@ -201,12 +212,13 @@ def test_gcvit_forward_matches_torch_oracle():
                              mlp_ratio=MLP_RATIO, layer_scale=LS)
     x_np = gen.normal(0, 1, (2, 3, IMG, IMG)).astype(np.float32)
     xin = jnp.asarray(x_np.transpose(0, 2, 3, 1))
-    variables = model.init(jax.random.PRNGKey(0), xin, False)
+    # compiled: an eager Flax init compiles each primitive on its own
+    variables = jax.jit(lambda k, xx: model.init(k, xx, False))(jax.random.PRNGKey(0), xin)
     converted, report = convert_state_dict("gcvit_xxtiny", sd, variables)
     assert not report.missing, report.missing
     assert not report.unused, report.unused
 
     with torch.no_grad():
         theirs = _gcvit_torch_forward(sd, torch.from_numpy(x_np)).numpy()
-    ours = np.asarray(model.apply(converted, xin, False))
+    ours = np.asarray(jax.jit(lambda v, xx: model.apply(v, xx, False))(converted, xin))
     np.testing.assert_allclose(ours, theirs, rtol=2e-3, atol=2e-4)

@@ -33,6 +33,16 @@ SMALL = dict(embed_dims=(16, 32), num_heads=(2, 4), depths=(1, 1), window_size=4
              drop_path_rate=0.0, pretrained=False)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     flax_model = JAX_BACKBONES.get(NAME)(**SMALL)
@@ -49,8 +59,10 @@ def test_backbone_matches_flax(monkeypatch, models, size):
     monkeypatch.setenv("TORCHOK_WINDOW_ATTN_PALLAS", "1")  # the fused Pallas path
     flax_model, variables, port = models
     x = np.random.default_rng(0).normal(size=(2, size, size, 3)).astype(np.float32)
-    ref = flax_model.apply(variables, jnp.asarray(x), return_features=True)
-    ref_out = flax_model.apply(variables, jnp.asarray(x))
+    # one compiled function (eager, each primitive and the Pallas kernels in
+    # interpret mode would compile on their own)
+    ref, ref_out = jax.jit(lambda v, xx: (flax_model.apply(v, xx, return_features=True),
+                                          flax_model.apply(v, xx)))(variables, jnp.asarray(x))
     before = dict(ops.LAUNCHES)
     with torch.no_grad():
         image = torch.from_numpy(x).permute(0, 3, 1, 2)

@@ -45,6 +45,16 @@ def _to_torch(sd):
     return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ---------------------------------------------------------------------------
 # every registry name
 # ---------------------------------------------------------------------------

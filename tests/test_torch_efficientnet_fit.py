@@ -6,6 +6,7 @@ backbones themselves are ``tests/test_torch_efficientnet.py``.
 import copy
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +29,16 @@ from tests.test_torch_train_slice import PortRecorder, small_config
 REPO = Path(__file__).resolve().parent.parent
 
 NARROW_B0 = {"depth_mult": 0.5, "drop_path_rate": 0.0, "pretrained": False}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _at_size(cfg, size):
@@ -101,7 +112,8 @@ def test_cli_trains_a_small_efficientnet_on_the_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "torchok_tpu_torch", "-cp", str(tmp_path), "-cn", "small_effnet",
          "trainer.accelerator=cpu", "trainer.max_epochs=2"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})  # one intra-op thread, as above
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("epoch ")]
     assert len(lines) == 2 and lines[1].startswith("epoch 1 | ")

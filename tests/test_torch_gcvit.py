@@ -55,6 +55,16 @@ def _to_torch(sd):
     return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=["plain", "layer_scale"])
 def models(request):
     cfg = SMALL if request.param == "plain" else SCALED
@@ -72,7 +82,10 @@ def test_backbone_matches_flax(monkeypatch, models, size):
     monkeypatch.setenv("TORCHOK_WINDOW_ATTN_PALLAS", "1")  # the fused Pallas path
     flax_model, variables, port = models
     x = np.random.default_rng(0).normal(size=(2, size, size, 3)).astype(np.float32)
-    ref = flax_model.apply(variables, jnp.asarray(x), return_features=True)
+    # one compiled function (eager, each primitive and the Pallas kernels in
+    # interpret mode would compile on their own)
+    ref = jax.jit(lambda v, xx: flax_model.apply(v, xx, return_features=True))(
+        variables, jnp.asarray(x))
     before = dict(ops.LAUNCHES)
     with torch.no_grad():
         got = port.forward_features(torch.from_numpy(x).permute(0, 3, 1, 2))

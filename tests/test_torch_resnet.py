@@ -233,7 +233,9 @@ def models(request):
 def test_feature_pyramid_matches_flax(models):
     name, flax_model, variables, port, size = models
     x = np.random.default_rng(0).normal(size=(4, *size, 3)).astype(np.float32)
-    ref = flax_model.apply(variables, jnp.asarray(x), method=flax_model.forward_features)
+    # one compiled function (eager, each primitive would compile on its own)
+    ref = jax.jit(lambda v, xx: flax_model.apply(v, xx, method=flax_model.forward_features))(
+        variables, jnp.asarray(x))
     before = dict(LAUNCHES)
     with torch.no_grad():
         got = port.eval().forward_features(_nchw(x))

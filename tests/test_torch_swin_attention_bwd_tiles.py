@@ -150,6 +150,16 @@ SHAPES = {36: (12, 12, 2, 6), 64: (16, 16, 2, 8), 144: (24, 24, 1, 12), 256: (32
 TOLERANCE = {torch.float32: (1e-4, 1e-3, 1e-3), torch.bfloat16: (2e-2, 1e-3, 1e-3)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port: at these sizes more threads only
+    contend for the cores with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, masked, b=2, seed=0, dtype=torch.float32):
     hp, wp, heads, ws = shape
     rng = np.random.default_rng(seed)

@@ -135,6 +135,12 @@ def _fit_jax(cfg):
     """torchok_tpu's fit: (initial params, final params, recorder)."""
     mp = pytest.MonkeyPatch()
     mp.setenv("TORCHOK_WINDOW_ATTN_PALLAS", "1")
+    # the initial variables from one jitted init, which the persistent
+    # compilation cache keeps (an eager init compiles each of its primitives
+    # on its own and keeps none); the port starts from whatever it gives
+    init = JaxBaseTask.init_variables
+    mp.setattr(JaxBaseTask, "init_variables", lambda self, rng, batch=None:
+               jax.jit(lambda key: init(self, key, batch))(rng))
     try:
         config = jax_merge(JaxConfigNode(copy.deepcopy(cfg)))
         task = JAX_TASKS.get(config.task.name)(config, **config.task.params.to_dict())
