@@ -240,7 +240,7 @@
      layer's logits and boxes) on the card within 1e-3 of the CPU's;
    * in a process of their own (``chip_smoke.py --side-phases``,
      ``SIDE_PHASES``), started once the op paths are done and joined before
-     the DETR draws (its output printed then), three phases. First the
+     the DETR draws (its output printed then), four phases. First the
      geometry of ``spatial.py`` (``run_spatial_recipe``): each of its
      device paths (``SPATIAL_DEVICE_CASES``: the affine, projective and
      distortion warps, the crops and resizes, the permutations, the pads)
@@ -257,6 +257,28 @@
      every parameter moved; then the host ms a sample of each new host
      transform at 256 to 400 px in a loader worker process, and no cv2, jax
      or torchok_tpu in that worker or this process; its seconds by part.
+     Then the photometry of ``pixelwise.py``'s first half, Flip to ToSepia
+     (``run_photometric_recipe``): each of the 27 names' device paths
+     (``PHOTOMETRIC_DEVICE_CASES``: the tone and colour shifts, dropouts,
+     casts, blurs, CLAHE, Equalize, HueSaturationValue, Downscale, Sharpen,
+     ToSepia) on 8 uint8 and float32 images of 224x224 and their masks on
+     the card against the CPU under the same draws, equal where the path's
+     arithmetic rounds alike on both, else within one uint8 level on 1% of
+     the values and 1e-4 in float32; then
+     ``configs/classification_gcvit_tiny_photometric_aug_train.yaml``
+     (``PHOTOMETRIC_TRAIN_CONFIG``): gcvit_tiny at full width, bf16, bs 64,
+     12 steps on uint8 224x224 images whose whole TRAIN pipeline
+     (RandomBrightnessContrast, HueSaturationValue, CLAHE, RandomGamma,
+     GaussianBlur, MotionBlur, Sharpen, CoarseDropout, ToGray, Normalize,
+     ToTensorV2) runs in the device suffix: 17 K3a and 14 K4 a forward, 17
+     K3b and 14 K5 a step, all on the tensor cores, no plain call (the
+     launches handed to the main process's kernels line through its
+     ``photometric launches:`` line, as the spatial recipe's through its
+     ``spatial launches:`` line), a finite loss, every parameter moved, the
+     suffix's ms a batch; then the host ms a sample of each of the 27 host
+     paths at 224x224 in a loader worker process (a JPEG round trip timed,
+     or its error naming libjpeg printed), and no cv2, jax or torchok_tpu
+     in that worker or this process; its seconds by part.
      Then ``configs/segmentation_sweet_pepper.yaml``
      (``SWEET_PEPPER_RECIPE``) verbatim but for its cuts: its TRAIN
      pipeline (flips, Compose(p 0.5) of PadIfNeeded and CenterCrop, two
@@ -1430,6 +1452,91 @@ SPATIAL_HOST_CASES = (
     ("RandomSizedBBoxSafeCrop", {"height": 256, "width": 256}), ("RandomCropFromBorders", {}),
     ("RandomCropNearBBox", {}), ("CropNonEmptyMaskIfExists", {"height": 256, "width": 256}),
     ("PiecewiseAffine", {}), ("MaskDropout", {"max_objects": 2}), ("Lambda", {}),
+)
+
+# configs/classification_gcvit_tiny_photometric_aug_train.yaml: gcvit_tiny at
+# full width trained through a device photometric suffix on uint8 224x224
+# images
+PHOTOMETRIC_SIZE = 224
+PHOTOMETRIC_BATCH = 64
+PHOTOMETRIC_STEPS = 12
+PHOTOMETRIC_SUFFIX = ["RandomBrightnessContrast", "HueSaturationValue", "CLAHE", "RandomGamma",
+                      "GaussianBlur", "MotionBlur", "Sharpen", "CoarseDropout", "ToGray",
+                      "Normalize", "ToTensorV2"]
+PHOTOMETRIC_TRAIN_CONFIG = {
+    "task": _task("gcvit_tiny", PHOTOMETRIC_SIZE, img_size=PHOTOMETRIC_SIZE),
+    "joint_loss": {"losses": [{"name": "CrossEntropyLoss",
+                               "mapping": {"input": "prediction", "target": "target"}}]},
+    "optimization": [{"optimizer": {"name": "Adam", "params": {"lr": 0.0001}}}],
+    "data": {
+        "TRAIN": [{
+            "dataloader": {"batch_size": PHOTOMETRIC_BATCH, "num_workers": 2, "drop_last": True,
+                           "shuffle": True},
+            "dataset": {
+                "name": "SyntheticClassificationDataset",
+                "params": {"num_samples": 1024, "num_classes": 1000,
+                           "image_size": [PHOTOMETRIC_SIZE, PHOTOMETRIC_SIZE]},
+                "augment": [{"name": name} for name in PHOTOMETRIC_SUFFIX[:8]]
+                + [{"name": "ToGray", "params": {"p": 0.2}}],
+                "transform": [{"name": "Normalize"}, {"name": "ToTensorV2"}]}}],
+        "VALID": _synthetic(PHOTOMETRIC_BATCH, False, False, PHOTOMETRIC_SIZE, PHOTOMETRIC_BATCH,
+                            seed=1)},
+    "trainer": {"accelerator": "gpu", "precision": 16, "max_epochs": 1,
+                "limit_train_batches": PHOTOMETRIC_STEPS, "log_every_n_steps": 1},
+    "seed_params": {"seed": 42},
+    "metrics": [{"name": "Accuracy", **_METRIC}],
+}
+# every device path of the 27 names, card against CPU under the same draws:
+# (name, params, exact, dtypes); exact where the path takes only
+# operations that both devices round alike (CLAHE's cube root included), a
+# bound where it takes a power or an exponential (PHOTOMETRIC_LEVEL_SHARE
+# and PHOTOMETRIC_FLOAT_TOL); uint8-only names run on uint8 alone
+PHOTOMETRIC_DEVICE_CASES = (
+    ("Flip", {"p": 0.7}, True, ("uint8", "float32")),
+    ("RandomBrightnessContrast", {"p": 0.7}, True, ("uint8", "float32")),
+    ("RandomBrightness", {"limit": 0.4, "p": 0.7}, True, ("uint8", "float32")),
+    ("RandomContrast", {"limit": 0.4, "p": 0.7}, True, ("uint8", "float32")),
+    ("CoarseDropout", {"max_holes": 6, "max_height": 40, "min_height": 10, "max_width": 30,
+                       "fill_value": 7, "mask_fill_value": 3, "p": 0.7}, True,
+     ("uint8", "float32")),
+    ("Cutout", {"num_holes": 4, "max_h_size": 30, "max_w_size": 20, "p": 0.7}, True,
+     ("uint8", "float32")),
+    ("InvertImg", {"p": 0.7}, True, ("uint8", "float32")),
+    ("ToGray", {"p": 0.7}, True, ("uint8", "float32")),
+    ("RandomGamma", {"gamma_limit": (50, 200), "p": 0.7}, False, ("uint8", "float32")),
+    ("Solarize", {"threshold": 100, "p": 0.7}, True, ("uint8", "float32")),
+    ("Posterize", {"num_bits": 3, "p": 0.7}, True, ("uint8",)),
+    ("ChannelShuffle", {"p": 0.7}, True, ("uint8", "float32")),
+    ("RGBShift", {"p": 0.7}, True, ("uint8", "float32")),
+    ("ToFloat", {}, True, ("uint8", "float32")),
+    ("FromFloat", {}, True, ("float32",)),
+    ("FromFloat", {"dtype": "uint8", "max_value": 255}, True, ("float32",)),
+    ("Blur", {"p": 0.7}, True, ("uint8", "float32")),
+    ("GaussianBlur", {"p": 0.7}, True, ("uint8", "float32")),
+    ("GaussianBlur", {"blur_limit": (3, 9), "sigma_limit": (0.3, 2.5), "p": 0.7}, False,
+     ("uint8", "float32")),
+    ("MedianBlur", {"p": 0.7}, True, ("uint8", "float32")),
+    ("MotionBlur", {"p": 0.7}, True, ("uint8", "float32")),
+    ("CLAHE", {"p": 0.7}, True, ("uint8",)),
+    ("CLAHE", {"clip_limit": (1, 8), "tile_grid_size": (5, 3), "p": 0.7}, True, ("uint8",)),
+    ("Equalize", {"p": 0.7}, True, ("uint8",)),
+    ("HueSaturationValue", {"p": 0.7}, True, ("uint8",)),
+    ("Downscale", {"scale_min": 0.2, "scale_max": 0.7, "p": 0.7}, True, ("uint8", "float32")),
+    ("Sharpen", {"p": 0.7}, True, ("uint8", "float32")),
+    ("ToSepia", {"p": 0.7}, True, ("uint8", "float32")),
+)
+PHOTOMETRIC_LEVEL_SHARE = 0.01
+PHOTOMETRIC_FLOAT_TOL = 1e-4
+# each new host transform, forced, timed in a loader worker process
+PHOTOMETRIC_HOST_CASES = (
+    ("Flip", {}), ("RandomBrightnessContrast", {}), ("RandomBrightness", {}),
+    ("RandomContrast", {}), ("CoarseDropout", {}), ("Cutout", {}), ("InvertImg", {}),
+    ("ToGray", {}), ("RandomGamma", {}), ("Solarize", {}), ("Posterize", {}),
+    ("ChannelShuffle", {}), ("RGBShift", {}), ("ToFloat", {}), ("FromFloat", {}),
+    ("Blur", {}), ("GaussianBlur", {}), ("MedianBlur", {}), ("MotionBlur", {}), ("CLAHE", {}),
+    ("Equalize", {}), ("HueSaturationValue", {}), ("ImageCompression", {}),
+    ("JpegCompression", {"quality_lower": 50, "quality_upper": 90}),
+    ("Downscale", {"scale_min": 0.25, "scale_max": 0.5}), ("Sharpen", {}), ("ToSepia", {}),
 )
 
 
@@ -4990,8 +5097,9 @@ def run_spatial_recipe():
     wholly in the device suffix; 12 K1 launches a forward and 12 K2 a step
     and no plain call, a finite loss, the step count, every parameter
     moved but the three pyramid norms no head reads (``SPATIAL_UNUSED``,
-    which must stay), the suffix's ms a batch. The launches are printed on a ``spatial launches:`` line, which
-    the main process adds to the kernels line. (c) The host ms a sample of
+    which must stay), the suffix's ms a batch. The launches are printed on
+    a ``spatial launches:`` line, which the main process adds to the
+    kernels line. (c) The host ms a sample of
     each new host transform in a loader worker process
     (:func:`time_spatial_host`), and no cv2, jax or torchok_tpu in this
     process or that worker."""
@@ -5101,11 +5209,242 @@ def run_spatial_recipe():
         fail(f"spatial recipe: loaded {in_main} here and {in_worker} in a loader worker")
 
 
+def check_photometric_devices(images, masks, device):
+    """Each device path of the 27 names (``PHOTOMETRIC_DEVICE_CASES``) on a
+    card batch against the same batch on the CPU under the same draws
+    (``draw_batch`` on the CPU, ``apply_drawn`` on both; the casts draw
+    nothing): uint8 and float32 images (float ones in [0, 1]) and masks.
+    Exact cases and every mask must be equal; the others' uint8 images
+    within one level on at most ``PHOTOMETRIC_LEVEL_SHARE`` of the values,
+    float ones within ``PHOTOMETRIC_FLOAT_TOL``. Returns the worst
+    (difference, share) of the uint8 cases that may differ."""
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.constructor import TRANSFORMS
+    worst_all = [0.0, 0.0]
+    for i, (name, params, exact, dtypes) in enumerate(PHOTOMETRIC_DEVICE_CASES):
+        t = TRANSFORMS.get(name)(**params)
+        if not t.device_capable:
+            fail(f"photometric devices: {name} {params} has no device path")
+        draws = (t.draw_batch(images.shape, torch.Generator().manual_seed(i), torch.device("cpu"))
+                 if hasattr(t, "draw_batch") else None)
+        for dtype in dtypes:
+            x = torch.from_numpy(images)
+            x = x if dtype == "uint8" else x.float() / 255.0
+            host = {"image": x, "mask": torch.from_numpy(masks)}
+            card = {k: v.to(device) for k, v in host.items()}
+            if draws is None:
+                want, got = t.apply_batch(host, None), t.apply_batch(card, None)
+            else:
+                want, got = t.apply_drawn(host, *draws), t.apply_drawn(card, *draws)
+            torch.cuda.synchronize()
+            if not torch.equal(got["mask"].cpu(), want["mask"]):
+                fail(f"photometric devices: {name} ({dtype}) moved the masks otherwise on the "
+                     "card")
+            a, b = got["image"].cpu().numpy(), want["image"].numpy()
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"photometric devices: {name} ({dtype}) gave {a.dtype} {a.shape} on the "
+                     f"card, {b.dtype} {b.shape} on the CPU")
+            diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+            worst, share = float(diff.max()), float((diff > 0).mean())
+            print(f"photometric devices: {name} {params} ({dtype}) card vs CPU, same draws: "
+                  f"largest difference {worst:.3e} on {share:.2e} of the values, output "
+                  f"{a.dtype} {a.shape}", flush=True)
+            if exact and worst != 0:
+                fail(f"photometric devices: {name} ({dtype}) must be equal, differs by {worst}")
+            if a.dtype == np.uint8 and not (worst <= 1 and share <= PHOTOMETRIC_LEVEL_SHARE):
+                fail(f"photometric devices: {name} (uint8) differs by {worst} on {share:.2e}")
+            if a.dtype == np.float32 and not worst <= PHOTOMETRIC_FLOAT_TOL:
+                fail(f"photometric devices: {name} (float32) differs by {worst:.3e}")
+            if a.dtype == np.uint8 and not exact:
+                worst_all = [max(worst_all[0], worst), max(worst_all[1], share)]
+    return worst_all
+
+
+# the error a JPEG round trip raises where libjpeg is missing names it
+JPEG_NAMES = ("ImageCompression", "JpegCompression")
+
+
+def time_photometric_host(reps: int = 1, n: int = 8):
+    """Host ms a sample of each transform of ``PHOTOMETRIC_HOST_CASES``
+    (forced) on uint8 224x224 images with masks, and which of cv2, jax and
+    torchok_tpu are loaded; run in a loader worker process. A JPEG round
+    trip either is timed or raises the error that names libjpeg (returned
+    as its message instead of a time)."""
+    import numpy as np
+    from torchok_tpu_torch.constructor import TRANSFORMS
+    from torchok_tpu_torch.data.transforms.base import sample_generator
+    images, masks = spatial_arrays(n, PHOTOMETRIC_SIZE, seed=5)
+    out = {}
+    for name, params in PHOTOMETRIC_HOST_CASES:
+        t = TRANSFORMS.get(name)(**params)
+        samples = [{"image": img if name != "FromFloat" else img / np.float32(255.0),
+                    "mask": mask} for img, mask in zip(images, masks)]
+        try:
+            t(force_apply=True, **samples[0])  # warm-up: lazy tables, the JPEG library
+        except RuntimeError as e:
+            if name not in JPEG_NAMES or "libjpeg" not in str(e):
+                raise
+            out[name] = str(e).splitlines()[0]
+            continue
+        start = time.perf_counter()
+        for r in range(reps):
+            for i, sample in enumerate(samples):
+                with sample_generator(np.random.default_rng([r, i])):
+                    t(force_apply=True, **sample)
+        out[name] = (time.perf_counter() - start) * 1e3 / (reps * n)
+    return out, modules_loaded()
+
+
+def run_photometric_recipe():
+    """The slice's photometric transforms on the card, in three parts. (a)
+    Each device path of the 27 names against its CPU path under the same
+    draws, on 8 images of 224x224 (:func:`check_photometric_devices`). (b)
+    ``configs/classification_gcvit_tiny_photometric_aug_train.yaml``
+    (``PHOTOMETRIC_TRAIN_CONFIG``) through ``run(..., "train")``:
+    gcvit_tiny at full width, bf16, bs 64, ``PHOTOMETRIC_STEPS`` steps on
+    uint8 224x224 images, its TRAIN pipeline (RandomBrightnessContrast,
+    HueSaturationValue, CLAHE, RandomGamma, GaussianBlur, MotionBlur,
+    Sharpen, CoarseDropout, ToGray, Normalize, ToTensorV2) wholly in the
+    device suffix; 17 K3a and 14 K4 launches a forward and 17 K3b and 14
+    K5 a step, all on the tensor cores, and no plain call; a finite loss,
+    the step count, every parameter moved (gcvit_tiny has none that the
+    head does not read), the suffix's ms a batch, whole and by transform.
+    The launches are printed
+    on a ``photometric launches:`` line, which the main process adds to
+    the kernels line. (c) The host ms a sample of each new host transform
+    in a loader worker process (:func:`time_photometric_host`), and no cv2,
+    jax or torchok_tpu in this process or that worker."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    from torchok_tpu_torch.__main__ import run
+    from torchok_tpu_torch.constructor.constructor import Constructor
+    from torchok_tpu_torch.engine.callbacks import Callback
+    from torchok_tpu_torch.ops import window_attention_dot as dot
+    from torchok_tpu_torch.ops.common import LAUNCHES
+    from torchok_tpu_torch.utils.cuda_build import load_libraries
+
+    start = time.perf_counter()
+    parts = {}  # the phase's seconds by part
+
+    def lap(name):
+        parts[name] = time.perf_counter() - start - sum(parts.values())
+
+    card = card_line()
+    load_libraries(dot.KERNELS)  # built by the main process, or here
+    lap("K3a, K3b, K4 and K5 loaded")
+    images, masks = spatial_arrays(8, PHOTOMETRIC_SIZE)
+    worst = check_photometric_devices(images, masks, torch.device("cuda", 0))
+    lap("device paths")
+
+    cfg = copy.deepcopy(PHOTOMETRIC_TRAIN_CONFIG)
+    dataset = cfg["data"]["TRAIN"][0]["dataset"]
+    host, suffix = Constructor._create_transforms(
+        copy.deepcopy(dataset["augment"] + dataset["transform"])).split_device_suffix(
+        uniform_shapes=True)
+    suffix = [type(t).__name__ for t in suffix]
+    print(f"photometric recipe: host prefix {[type(t).__name__ for t in host.transforms]}, "
+          f"device suffix {suffix}", flush=True)
+    if host.transforms or suffix != PHOTOMETRIC_SUFFIX:
+        fail(f"photometric recipe: the split left {host.transforms} on the host")
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.initial, self.losses = {}, []
+
+        def on_fit_start(self, trainer, task):
+            self.initial = {k: v.detach().clone()
+                            for k, v in trainer.state.model.named_parameters()}
+
+        def on_train_batch_end(self, trainer, task, step, logs):
+            self.losses.append(float(logs["loss"]))
+
+    recorder = Recorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    dot.ROUTE_LAUNCHES.clear()
+    dot.FWD_ROUTE_LAUNCHES.clear()
+    trainer, logs = run(cfg, "train", [recorder])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lap("train")
+    peak = torch.cuda.max_memory_allocated()
+    stats = trainer.last_fit
+    forwards = PHOTOMETRIC_STEPS + 2  # one sanity and one validation batch
+    require_launches("photometric recipe train", counts, {
+        dot.KERNEL: GCVIT_LOCAL * forwards, dot.KERNEL_GLOBAL: GCVIT_GLOBAL * forwards,
+        dot.KERNEL_BWD: GCVIT_LOCAL * PHOTOMETRIC_STEPS,
+        dot.KERNEL_GLOBAL_BWD: GCVIT_GLOBAL * PHOTOMETRIC_STEPS})
+    require_fwd_routes("photometric recipe train", {(dot.KERNEL, "mma"): GCVIT_LOCAL,
+                                                    (dot.KERNEL_GLOBAL, "mma"): GCVIT_GLOBAL},
+                       forwards)
+    routes = {k: v for k, v in dot.ROUTE_LAUNCHES.items() if v}
+    if routes != {(dot.KERNEL_BWD, "mma"): GCVIT_LOCAL * PHOTOMETRIC_STEPS,
+                  (dot.KERNEL_GLOBAL_BWD, "mma"): GCVIT_GLOBAL * PHOTOMETRIC_STEPS}:
+        fail(f"photometric recipe train: K3b/K5 launches by route {routes}, expected all on "
+             "mma")
+    print("photometric launches: " + json.dumps(counts), flush=True)
+    moved = {name: not torch.equal(value, recorder.initial[name])
+             for name, value in trainer.state.model.named_parameters()}
+    loss = logs.get("train/loss", float("nan"))
+    # the device suffix alone on a batch of the run's images, CUDA events
+    dataset = trainer.task.train_dataloader()[0].dataset
+    card_batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+                  dataset.get_batch(np.arange(PHOTOMETRIC_BATCH)).items() if k == "image"}
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    suffix_ms = median_ms(lambda: dataset.device_pipeline(card_batch, generator))
+    by_transform, batch = {}, card_batch  # each on what the ones before it give
+    for t in dataset.device_pipeline.transforms:
+        by_transform[type(t).__name__] = median_ms(lambda: t.apply_batch(batch, generator))
+        batch = t.apply_batch(batch, generator)
+    print("photometric recipe: the device suffix by transform, ms a batch of "
+          f"{PHOTOMETRIC_BATCH} (CUDA events, median): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_transform.items()) + f" on {card}",
+          flush=True)
+    lap("suffix timed")
+
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("forkserver")) as pool:
+        host_ms, in_worker = pool.submit(time_photometric_host).result(timeout=300)
+    lap("host ms in a worker")
+    in_main = modules_loaded()
+    timed = {k: v for k, v in host_ms.items() if not isinstance(v, str)}
+    print("photometric recipe: host ms a sample (uint8 224x224, forced, in a loader worker "
+          "process): " + ", ".join(f"{k} {v:.3f}" for k, v in timed.items()) + "; "
+          + "; ".join(f"{k} raised: {v}" for k, v in host_ms.items() if isinstance(v, str))
+          + f" on {card}", flush=True)
+    print(f"photometric recipe (gcvit_tiny, 1000 classes, {PHOTOMETRIC_SIZE}x{PHOTOMETRIC_SIZE} "
+          f"uint8 photometrically augmented on the card, bs {PHOTOMETRIC_BATCH}, bf16): "
+          f"train/loss={loss:.6f} after {trainer.global_step} steps (per step: "
+          + " ".join(f"{v:.4f}" for v in recorder.losses) + f"); valid/Accuracy="
+          f"{logs.get('valid/Accuracy', float('nan')):.6f}; smoke train img/s "
+          f"{stats['images'] / stats['seconds']:.2f} (host clock, {stats['images']} images in "
+          f"{stats['seconds']:.3f} s, the photometry on the card); the device suffix "
+          f"{suffix_ms:.4f} ms a batch of {PHOTOMETRIC_BATCH} (CUDA events, median); peak "
+          f"device memory {peak / 2**20:.1f} MiB; launches {counts}, 0 plain calls; "
+          f"{sum(moved.values())} of {len(moved)} parameters moved; card vs CPU worst "
+          f"{worst[0]:.0f} level on {worst[1]:.2e} of the uint8 values of the bounded cases; "
+          f"modules loaded of cv2, jax, torchok_tpu: {in_main} here, {in_worker} in a loader "
+          f"worker; phase {time.perf_counter() - start:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") on {card}", flush=True)
+    if not math.isfinite(loss) or not all(math.isfinite(v) for v in recorder.losses):
+        fail(f"photometric recipe: a loss is not finite: {recorder.losses}")
+    if trainer.global_step != PHOTOMETRIC_STEPS or stats["steps"] != PHOTOMETRIC_STEPS:
+        fail(f"photometric recipe: {trainer.global_step} steps, expected {PHOTOMETRIC_STEPS}")
+    if not all(moved.values()):
+        fail(f"photometric recipe: parameters that did not move: "
+             f"{[k for k, v in moved.items() if not v][:5]}")
+    if in_main or in_worker:
+        fail(f"photometric recipe: loaded {in_main} here and {in_worker} in a loader worker")
+
+
 def side_launches(text):
-    """The kernel launches a side phase printed on its ``spatial launches:``
-    line, or {}."""
-    found = re.findall(r"^spatial launches: (\{.*\})$", text, re.M)
-    return json.loads(found[-1]) if found else {}
+    """The kernel launches each side phase printed on its ``<phase>
+    launches: {...}`` line (the last of a phase), by phase."""
+    return {phase: json.loads(counts) for phase, counts in
+            re.findall(r"^(\w+) launches: (\{.*\})$", text, re.M)}
 
 
 def witness_hit(state, k=1):
@@ -5600,8 +5939,8 @@ def check_kernel_export_refused():
 # process of their own once the kernel timings are done. They read and
 # augment files and export models, so they use the host's cores and little
 # of the card, and they end before the main process's later phases do
-SIDE_PHASES = (("spatial", run_spatial_recipe), ("sweet_pepper", run_augment_recipe),
-               ("sop", run_sop_recipes))
+SIDE_PHASES = (("spatial", run_spatial_recipe), ("photometric", run_photometric_recipe),
+               ("sweet_pepper", run_augment_recipe), ("sop", run_sop_recipes))
 
 
 def start_side_phases(log_dir):
@@ -5814,12 +6153,17 @@ def main() -> None:
     failures, texts = wait_processes(side_phases)
     if failures:
         fail("side phases: " + "; ".join(failures))
-    # the spatial recipe's K1 and K2 launches, counted in the side process
-    spatial = side_launches(texts["side phases"])
-    if not spatial.get(swin.KERNEL) or not spatial.get(swin.KERNEL_BWD):
-        fail(f"side phases: no K1 and K2 launches reported by the spatial recipe: {spatial}")
-    for kernel, count in spatial.items():
-        records[kernel]["launches"] += count
+    # the side recipes' launches, counted in the side process: K1 and K2 of
+    # the spatial recipe, K3a, K3b, K4 and K5 of the photometric one
+    side = side_launches(texts["side phases"])
+    for phase, kernels in (("spatial", (swin.KERNEL, swin.KERNEL_BWD)),
+                           ("photometric", dot.KERNELS)):
+        if not all(side.get(phase, {}).get(k) for k in kernels):
+            fail(f"side phases: the {phase} recipe reported no launches of {kernels}: "
+                 f"{side.get(phase)}")
+    for counts in side.values():
+        for kernel, count in counts.items():
+            records[kernel]["launches"] += count
     stamp("detr recipe, joined")
     finish_detr_recipe(detr_recipe)
 

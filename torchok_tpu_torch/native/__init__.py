@@ -10,7 +10,8 @@ which decodes JPEG and PNG through libjpeg and libpng).
   Paeth a loop over the pixels). PNG is lossless, so the result is exact
   whatever the machine. Adam7-interlaced files raise.
 * JPEG goes through libjpeg (``io_kernels.cpp``, built with g++ at first
-  use, :mod:`.build`) to RGB; where libjpeg is missing it raises.
+  use, :mod:`.build`) to RGB, and :func:`encode_jpeg` writes one as
+  ``cv2.imencode(".jpg")`` does; where libjpeg is missing both raise.
 * Any other file raises: nothing falls back to another reader.
 """
 from __future__ import annotations
@@ -173,13 +174,23 @@ def _jpeg_library():
     with _jpeg_lock:
         if _jpeg is None:
             from torchok_tpu_torch.native.build import build_jpeg_library
-            lib = ctypes.CDLL(str(build_jpeg_library()))
+            path = build_jpeg_library()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:  # built where libjpeg was, loaded where it is not
+                raise RuntimeError(f"JPEG decoding and encoding need libjpeg: loading {path} "
+                                   f"failed: {e}") from e
             lib.tkio_jpeg_info.restype = ctypes.c_int
             lib.tkio_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_int64] + \
                 [ctypes.POINTER(ctypes.c_int)] * 3
             lib.tkio_jpeg_decode.restype = ctypes.c_int
             lib.tkio_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                              ctypes.c_int, ctypes.c_int]
+            lib.tkio_jpeg_encode.restype = ctypes.c_int
+            lib.tkio_jpeg_encode.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_uint64)]
+            lib.tkio_free.restype = None
+            lib.tkio_free.argtypes = [ctypes.c_void_p]
             _jpeg = lib
         return _jpeg
 
@@ -195,6 +206,27 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                             w.value):
         raise ValueError("libjpeg could not decode the JPEG data")
     return out
+
+
+def encode_jpeg(image: np.ndarray, quality: int) -> bytes:
+    """A uint8 gray (H, W) or (H, W, 1), or RGB (H, W, 3) image as baseline
+    JPEG bytes of ``quality`` (1 to 100) with libjpeg's defaults (4:2:0
+    chroma, no optimised tables), as ``cv2.imencode(".jpg")`` writes them."""
+    img = np.ascontiguousarray(image, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    if c not in (1, 3):
+        raise ValueError(f"a JPEG holds 1 or 3 channels, not {c}")
+    lib = _jpeg_library()
+    out, size = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_uint64()
+    if lib.tkio_jpeg_encode(img.ctypes.data_as(ctypes.c_void_p), h, w, c, int(quality),
+                            ctypes.byref(out), ctypes.byref(size)):
+        raise ValueError("libjpeg could not encode the image")
+    try:
+        return ctypes.string_at(out, size.value)
+    finally:
+        lib.tkio_free(out)
 
 
 def decode_image(data: bytes) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Builds the port's JPEG library (port of
+"""Builds the port's JPEG library (decoder and encoder) (port of
 ``torchok_tpu.native.build``).
 
 Compiles ``io_kernels.cpp`` with ``g++`` against libjpeg at first use into
@@ -40,12 +40,12 @@ def build_jpeg_library() -> Path:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         except (OSError, subprocess.SubprocessError) as e:
             os.unlink(tmp)
-            raise RuntimeError(f"JPEG decoding needs g++ and libjpeg: {' '.join(cmd)} "
+            raise RuntimeError(f"JPEG decoding and encoding need g++ and libjpeg: {' '.join(cmd)} "
                                f"failed: {e}") from e
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                "JPEG decoding needs libjpeg (jpeglib.h and -ljpeg), and building "
+                "JPEG decoding and encoding need libjpeg (jpeglib.h and -ljpeg), and building "
                 f"{SRC.name} against it failed (exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         return out

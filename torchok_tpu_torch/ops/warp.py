@@ -308,7 +308,7 @@ def _taps(src: np.ndarray, rows, cols, fill: np.ndarray) -> np.ndarray:
     return vals
 
 
-def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+def fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     """float32 ``a * b + c`` rounded once (the product is exact in float64)."""
     out = np.multiply(a, b, dtype=np.float64)
     out += c
@@ -343,8 +343,8 @@ def remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
     p00, p01, p10, p11 = (_taps(src, rows[dy], cols[dx], fill).astype(np.float32)
                           for dy in (0, 1) for dx in (0, 1))
     ax = ax.astype(np.float64)  # both steps along x take it
-    top = _fma(ax, p01 - p00, p00)
-    out = _fma(ay, _fma(ax, p11 - p10, p10) - top, top)
+    top = fma(ax, p01 - p00, p00)
+    out = fma(ay, fma(ax, p11 - p10, p10) - top, top)
     if np.issubdtype(src.dtype, np.integer):
         info = np.iinfo(src.dtype)
         out = np.clip(np.rint(out), info.min, info.max).astype(src.dtype)
@@ -382,7 +382,7 @@ def _warp_coord(m: np.ndarray, row: int, xs: np.ndarray, ys: np.ndarray,
     (``body``), ``fma(m0, x, m1 * y) + m2`` in the last partial block."""
     m0, m1, m2 = m[row]
     yterm = m1 * ys
-    return np.where(body, _fma(m0, xs, yterm + m2), _fma(m0, xs, yterm) + m2)
+    return np.where(body, fma(m0, xs, yterm + m2), fma(m0, xs, yterm) + m2)
 
 
 def _warp_grid(dsize: Tuple[int, int]):
